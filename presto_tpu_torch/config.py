@@ -37,6 +37,10 @@ PROPERTIES = [
              "Commute inner equi-joins so the smaller estimated side "
              "becomes the hash build (plan/iterative.ReorderJoins)",
              _parse_bool, True),
+    Property("merge_join_enabled",
+             "Run inner/left/full equi-joins as the unique-build merge "
+             "join first; a duplicate build key falls back to the "
+             "expansion hash join", _parse_bool, True),
     Property("query_max_execution_time",
              "Wall-clock budget per query in seconds (0 = unlimited); "
              "exceeded -> the query FAILS", float, 0.0),

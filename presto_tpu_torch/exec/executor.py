@@ -9,19 +9,32 @@ node is evaluated eagerly in the same order and with the same operators:
 - Project rewrites columns;
 - Aggregation fuses the Filter/Project chain below it into a row mask and
   calls ops/aggregate.grouped_aggregate (kernels K1, or K2 + K3);
+- Join runs ops/join.merge_join for unique build keys and semi/anti joins,
+  and falls back to the expansion ops/join.hash_join where the build side
+  has duplicate keys (kernels K4, K5, K6 and K2);
+- AssignUniqueId appends a row id;
 - Sort / TopN / Limit / Output as in ops/sort.py.
 
+Scalar subqueries (uncorrelated) are executed first and replaced by
+literals (`_resolve_subqueries`, as the JAX executor does).
+
 Capacities follow the JAX package: an aggregation's output capacity is a
-bucket of its group-count hint; the true group counts and the
-checked-arithmetic error lane are read in ONE host sync at the end of the
-plan, and an overflow re-runs the plan at larger learned capacities (kept
-per plan for the executor's lifetime). Other node types (joins, windows,
-unions, unnest, exchanges, ...) and scalar subqueries raise
-NotImplementedError: later slices of the port.
+bucket of its group-count hint and an expansion join's a bucket of its
+probe capacity times its fan-out hint; the true counts, the merge joins'
+duplicate counts and the checked-arithmetic error lane are read in ONE
+host sync at the end of the plan, and an overflow (or a duplicate build
+key under a merge join, watched under the negated node id) re-runs the
+plan at larger learned capacities (kept per plan for the executor's
+lifetime). Other node types (windows, unions, unnest, grouping sets,
+distinct marks, exchanges, writers, ...) raise NotImplementedError:
+later slices of the port. So do the three join cases the JAX executor
+does not implement either (a residual filter on a FULL join, a FULL join
+and a LEFT join with a residual filter whose build keys repeat).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List
 
@@ -33,11 +46,15 @@ from presto_tpu_torch.data.column import (
 )
 from presto_tpu_torch.expr import errors as E
 from presto_tpu_torch.expr.compile import compile_expr
+from presto_tpu_torch.expr.nodes import Call, Literal, RowExpression, \
+    SpecialForm
 from presto_tpu_torch.ops.aggregate import grouped_aggregate
+from presto_tpu_torch.ops.join import hash_join, merge_join
 from presto_tpu_torch.ops.sort import limit_page, sort_page, top_n
 from presto_tpu_torch.plan.nodes import (
-    AggregationNode, FilterNode, LimitNode, OutputNode,
-    PlanNode, ProjectNode, SortNode, TableScanNode, TopNNode, ValuesNode,
+    AggregationNode, AssignUniqueIdNode, FilterNode, JoinNode, JoinType,
+    LimitNode, OutputNode, PlanNode, ProjectNode, SortNode, TableScanNode,
+    TopNNode, ValuesNode,
 )
 
 
@@ -60,6 +77,7 @@ class Executor:
     def execute(self, plan: PlanNode) -> Page:
         budget = self.session["query_max_execution_time"]
         self._deadline = (time.time() + budget) if budget else None
+        plan = self._resolve_subqueries(plan)
         caps = self._learned.setdefault(plan, {})
         for _attempt in range(8):
             out, watch, needed, err = self._run(plan, caps)
@@ -85,6 +103,59 @@ class Executor:
 
     def _scan_rows(self, node) -> int:
         return self.connector.table(node.table).num_rows
+
+    def _resolve_subqueries(self, plan: PlanNode) -> PlanNode:
+        """Pre-execute scalar subqueries (uncorrelated), substituting
+        literals (presto_tpu/exec/executor.py:702; reference role:
+        EnforceSingleRowOperator). Each one is a host sync, as in the
+        JAX executor."""
+        from presto_tpu_torch.sql.analyzer import Subquery
+
+        def rewrite_expr(e: RowExpression) -> RowExpression:
+            if isinstance(e, Subquery):
+                rows = self.execute(e.plan).to_pylist()
+                if len(rows) != 1:
+                    raise RuntimeError(
+                        f"scalar subquery returned {len(rows)} rows")
+                v = rows[0][0]
+                if e.type.is_decimal and v is not None:
+                    v = int(round(v * 10 ** e.type.scale))
+                return Literal(v, e.type)
+            if isinstance(e, (Call, SpecialForm)):
+                return dataclasses.replace(
+                    e, args=tuple(rewrite_expr(a) for a in e.args))
+            return e
+
+        def has_subquery(e) -> bool:
+            if isinstance(e, Subquery):
+                return True
+            return any(has_subquery(c) for c in e.children())
+
+        def rewrite(node: PlanNode) -> PlanNode:
+            kids = tuple(rewrite(c) for c in node.children())
+            repl = {}
+            if isinstance(node, FilterNode):
+                repl = {"source": kids[0]}
+                if has_subquery(node.predicate):
+                    repl["predicate"] = rewrite_expr(node.predicate)
+            elif isinstance(node, ProjectNode):
+                repl = {"source": kids[0]}
+                if any(has_subquery(e) for e in node.expressions):
+                    repl["expressions"] = tuple(
+                        rewrite_expr(e) for e in node.expressions)
+            elif isinstance(node, JoinNode):
+                repl = {"probe": kids[0], "build": kids[1]}
+                if node.filter is not None and has_subquery(node.filter):
+                    repl["filter"] = rewrite_expr(node.filter)
+            elif kids:
+                names = [f.name for f in dataclasses.fields(node)]
+                if "sources" in names:      # UnionAllNode and friends
+                    repl = {"sources": kids}
+                elif "source" in names:
+                    repl = {"source": kids[0]}
+            return dataclasses.replace(node, **repl) if repl else node
+
+        return rewrite(plan)
 
     # ------------------------------------------------------------------
     def _run(self, plan: PlanNode, caps: Dict[int, int]):
@@ -127,6 +198,16 @@ class Executor:
                 return Page(cols, p.num_rows, node.output_names)
             if isinstance(node, AggregationNode):
                 return run_aggregation(node, nid)
+            if isinstance(node, JoinNode):
+                return run_join(node, nid)
+            if isinstance(node, AssignUniqueIdNode):
+                p = run(node.source)
+                ids = torch.arange(p.capacity, dtype=torch.int64,
+                                   device=p.device)
+                col = Column(ids, ~p.row_valid(), node.output_types[-1],
+                             None)
+                return Page(p.columns + (col,), p.num_rows,
+                            node.output_names)
             if isinstance(node, SortNode):
                 return sort_page(run(node.source), node.keys)
             if isinstance(node, TopNNode):
@@ -174,7 +255,100 @@ class Executor:
             needed.append(true_groups)
             return out
 
-        with E.collecting() as coll:
-            out = run(plan)
-            err = coll.combined(dev)
+        def keep_true(c: Column) -> torch.Tensor:
+            return ~c.nulls & c.values.to(torch.bool)
+
+        def run_join(node: JoinNode, nid: int) -> Page:
+            # presto_tpu/exec/executor.py:908-1031
+            p = run(node.probe)
+            b = run(node.build)
+            jt = node.join_type
+            if jt in (JoinType.SEMI, JoinType.ANTI, JoinType.ANTI_EXISTS):
+                # duplicates cannot change a match flag: no fallback
+                out, _dup, _m = merge_join(p, b, node.probe_keys,
+                                           node.build_keys, jt.value)
+                if node.emit_flag:
+                    return Page(out.columns, out.num_rows,
+                                node.output_names)
+                return compact(Page(out.columns[:-1], out.num_rows,
+                                    node.output_names),
+                               keep_true(out.columns[-1]))
+            # Unique-build merge join first; its duplicate count is
+            # watched under the negated node id, and any duplicate live
+            # build key re-runs the plan onto the expansion hash join.
+            use_merge = (bool(node.probe_keys)
+                         and self.session["merge_join_enabled"]
+                         and jt in (JoinType.INNER, JoinType.LEFT,
+                                    JoinType.FULL)
+                         and caps.get(-nid, 0) == 0)
+            if use_merge:
+                caps[-nid] = 0
+                if node.filter is not None and jt == JoinType.LEFT:
+                    # a failed residual demotes a match to a null
+                    # extension (SQL outer-join ON clause)
+                    out, dup, match = merge_join(
+                        p, b, node.probe_keys, node.build_keys, "left")
+                    watch.append(-nid)
+                    needed.append(dup)
+                    out = Page(out.columns, out.num_rows,
+                               node.output_names)
+                    ok = match & keep_true(compile_expr(node.filter)(out))
+                    cols = list(out.columns[:len(p.columns)])
+                    for bc in out.columns[len(p.columns):]:
+                        sent = torch.tensor(bc.type.null_sentinel(),
+                                            dtype=bc.values.dtype,
+                                            device=dev)
+                        cols.append(Column(
+                            torch.where(ok, bc.values, sent),
+                            torch.where(ok, bc.nulls, True),
+                            bc.type, bc.dictionary))
+                    return Page(tuple(cols), out.num_rows,
+                                node.output_names)
+                out, dup, _match = merge_join(
+                    p, b, node.probe_keys, node.build_keys, jt.value)
+                watch.append(-nid)
+                needed.append(dup)
+                out = Page(out.columns, out.num_rows, node.output_names)
+                if node.filter is not None:
+                    if jt == JoinType.FULL:
+                        raise NotImplementedError(
+                            "residual filter on full outer join")
+                    out = compact(out, keep_true(
+                        compile_expr(node.filter)(out)))
+                return out
+
+            fan = max(node.fanout_hint, 1.0)
+            out_cap = caps.get(nid) or bucket_capacity(
+                min(int(p.capacity * fan), 2**26))
+            caps[nid] = out_cap
+            if jt == JoinType.FULL:
+                raise NotImplementedError(
+                    "full outer join with duplicate build keys (the "
+                    "expansion path has no full-outer form yet)")
+            out, total = hash_join(p, b, node.probe_keys, node.build_keys,
+                                   out_cap, jt.value)
+            watch.append(nid)
+            needed.append(total)
+            out = Page(out.columns, out.num_rows, node.output_names)
+            if node.filter is not None:
+                c = compile_expr(node.filter)(out)
+                if jt == JoinType.LEFT:
+                    raise NotImplementedError(
+                        "residual ON filter on a LEFT join whose "
+                        "build side has duplicate keys (the "
+                        "expansion fallback cannot null-extend "
+                        "per probe row yet; build-side-only "
+                        "conditions are pre-filtered by the "
+                        "planner and never reach here)")
+                out = compact(out, keep_true(c))
+            return out
+
+        try:
+            with E.collecting() as coll:
+                out = run(plan)
+                err = coll.combined(dev)
+        finally:
+            # the closures above reference each other and `memo`: free the
+            # intermediate pages now, not at the next cyclic collection
+            memo.clear()
         return out, watch, needed, err

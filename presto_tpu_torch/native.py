@@ -39,6 +39,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "segment_reduce": {
         "segment_reduce": [_P, _I32, _I32, _P, _P, _P, _I64, _I64,
                            _P, _P, _P, _P, _P, _P]},
+    "hash": {"hash_columns": [_P, _P, _P, _I32, _I64, _P, _P]},
+    "join": {
+        "join_probe": [_P, _I64, _P, _P, _I64, _P, _P, _P, _P, _I32, _I32,
+                       _P, _P, _P, _P, _P],
+        "join_expand": [_P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _I32,
+                        _I64, _P, _P, _P, _P, _P, _P, _P]},
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -59,7 +65,10 @@ def nvcc_path() -> str:
 
 
 def _library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every library's source
+    source = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(source
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

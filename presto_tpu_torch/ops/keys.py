@@ -1,14 +1,15 @@
 """Key normalization and multi-key sort permutations.
 
 The port's twin of presto_tpu/ops/keys.py: SortKey, group_values,
-values_equal, lex_perm, sort_perm and new_group_flags. Argsorts are
+values_equal, lex_perm, sort_perm, new_group_flags and the key hash
+`hash_columns` (kernel K4, csrc/hash.cu). Argsorts are
 `torch.sort(..., stable=True)`, composed least-significant lane first, as
-in the JAX package. Key hashing (`hash_columns`) belongs to the joins slice
-and is not ported yet.
+in the JAX package.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional, Sequence
 
@@ -116,3 +117,137 @@ def new_group_flags(sorted_page: Page,
         flags |= ~same
     flags[0] = True
     return flags
+
+
+# -- hashing ---------------------------------------------------------------
+# The JAX package hashes in uint64. torch on the CPU has no uint64 shifts or
+# additions, so the plain version works on the same bits in int64: additions
+# and multiplications wrap identically, and a logical right shift is an
+# arithmetic one with the sign-extended bits masked off.
+
+def _i64(u: int) -> int:
+    """The int64 with the bits of the uint64 constant `u`."""
+    return u - (1 << 64) if u >= (1 << 63) else u
+
+
+_SPLITMIX_C1 = _i64(0xBF58476D1CE4E5B9)
+_SPLITMIX_C2 = _i64(0x94D049BB133111EB)
+_GOLDEN = _i64(0x9E3779B97F4A7C15)
+NULL_TAG = 0x5BD1E995
+_MASK63 = 0x7FFFFFFFFFFFFFFF
+
+#: key lane dtypes the hash and join kernels read, by their code
+LANE_DTYPES = {torch.float64: 0, torch.int64: 1, torch.int32: 2,
+               torch.bool: 3, torch.float32: 4}
+
+#: most key lanes one launch of a hash or join kernel takes
+MAX_KEY_LANES = 16
+
+
+def _srl(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of the int64 bits of `x` by k."""
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def _mix64(x: torch.Tensor) -> torch.Tensor:
+    x = (x ^ _srl(x, 30)) * _SPLITMIX_C1
+    x = (x ^ _srl(x, 27)) * _SPLITMIX_C2
+    return x ^ _srl(x, 31)
+
+
+def f64_hash_lanes(v: torch.Tensor) -> torch.Tensor:
+    """The JAX package's float hash input (presto_tpu/ops/keys.py:107), as
+    int64 bits: an exponent lane from floor(log2|v|) and the top 32
+    mantissa bits taken arithmetically, with fixed tags for NaN, +-inf
+    and +-0 (so NaN hashes equal to NaN and -0.0 to 0.0)."""
+    v = v.to(torch.float64)
+    is_nan = torch.isnan(v)
+    is_inf = torch.isinf(v)
+    safe = torch.where(is_nan | is_inf, 1.0, v)
+    ae = torch.clamp(safe.abs(), min=1e-300)
+    e = torch.floor(torch.log2(ae))
+    norm = ae * torch.exp2(-e)
+    mant = (torch.clamp(norm - 1.0, 0.0, 1.0) * 2.0 ** 32).to(torch.int64)
+    eb = e.to(torch.int64) + 2048
+    h = (eb * _GOLDEN) ^ mant
+    h = torch.where(v < 0, h ^ _i64(0xA5A5A5A5DEADBEEF), h)
+    h = torch.where(v == 0.0, 0x5E5E0000, h)
+    h = torch.where(is_nan, 0x7FF8000000000001, h)
+    h = torch.where(is_inf & (v > 0), 0x7FF0000000000000, h)
+    return torch.where(is_inf & (v < 0), _i64(0xFFF0000000000000), h)
+
+
+def _hash_columns_plain(cols: Sequence[Column]) -> torch.Tensor:
+    """Plain PyTorch version of the hash_columns kernel."""
+    h = torch.zeros(cols[0].capacity, dtype=torch.int64,
+                    device=cols[0].values.device)
+    for c in cols:
+        g = group_values(c)
+        v = f64_hash_lanes(g) if g.is_floating_point() else g
+        v = torch.where(c.nulls, NULL_TAG, v)
+        h = _mix64(h ^ (v + _GOLDEN + (h << 6) + _srl(h, 2)))
+    return h & _MASK63
+
+
+def lane_arrays(tensors: Sequence[torch.Tensor]):
+    """(pointer array, dtype code array) describing key lanes for the
+    hash and join kernels, as c_void_p (each keeps its array alive);
+    raises on a dtype or lane count they do not take."""
+    if len(tensors) > MAX_KEY_LANES:
+        raise ValueError(f"{len(tensors)} key lanes: the kernels take at "
+                         f"most {MAX_KEY_LANES}")
+    codes = []
+    for t in tensors:
+        if t.dtype not in LANE_DTYPES or t.dim() != 1 \
+                or not t.is_contiguous():
+            raise TypeError(f"key lane {t.dtype} {tuple(t.shape)}: the "
+                            f"kernels take contiguous 1-d "
+                            f"{sorted(map(str, LANE_DTYPES))}")
+        codes.append(LANE_DTYPES[t.dtype])
+    k = max(len(tensors), 1)
+    ptrs = (ctypes.c_void_p * k)(*[t.data_ptr() for t in tensors])
+    dts = (ctypes.c_int * k)(*codes)
+    return (ctypes.cast(ptrs, ctypes.c_void_p),
+            ctypes.cast(dts, ctypes.c_void_p))
+
+
+def hash_columns(cols: Sequence[Column]) -> torch.Tensor:
+    """Combined 64-bit hash of the key columns per row (splitmix64
+    combine; presto_tpu/ops/keys.py:211), masked to non-negative int64.
+    NULL hashes to a fixed tag; joins exclude null keys themselves.
+
+    Kernel K4 (csrc/hash.cu) on CUDA tensors, the plain version on CPU
+    tensors. Integer, boolean and dictionary-coded keys give the JAX
+    function's exact value; float keys go through log2/exp2, which may
+    differ from XLA's by an ulp, so only equality within the port is
+    promised for them (equal keys hash equal, NaN = NaN, -0.0 = 0.0)."""
+    if not cols:
+        raise ValueError("hash_columns needs at least one key column")
+    dev = cols[0].values.device
+    cap = cols[0].capacity
+    for c in cols:
+        if c.values.device != dev or c.capacity != cap:
+            raise ValueError("hash_columns: key columns differ in device "
+                             "or capacity")
+    if dev.type == "cpu":
+        return _hash_columns_plain(cols)
+    if dev.type != "cuda":
+        raise RuntimeError(f"hash_columns: no kernel for {dev}")
+    from presto_tpu_torch import native
+    vals = [c.values.contiguous() for c in cols]
+    nulls = [c.nulls.contiguous() for c in cols]
+    vptr, dts = lane_arrays(vals)
+    nptr, _ = lane_arrays(nulls)
+    out = torch.empty(cap, dtype=torch.int64, device=dev)
+    lib = native.load("hash")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.hash_columns(
+            vptr, dts, nptr, len(cols), cap,
+            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
+    native.check(rc, "hash_columns", "hash")
+    hash_columns.launches += 1
+    return out
+
+
+hash_columns.launches = 0

@@ -7,7 +7,9 @@ contiguous segments as differences of one blocked running sum (`cumsum`
 K3) sums each segment directly, and dense group starts are a stable
 compaction of the flag positions (`compact_indices`, K2). The JAX
 package's segmented scans and fills (seg_scan, fill_forward,
-fill_backward) serve windows and joins, which are later slices.
+blocked_cummax, fill_backward) serve its merge join and windows; the
+port's joins do without them (ops/join.py), and windows are a later
+slice.
 """
 
 from __future__ import annotations

@@ -3,14 +3,15 @@
 
     python3 profile_port.py [--out profile.json]
 
-Runs chip_smoke.py's queries (TPC-H q01, q06 and the q18 aggregation
-block at SF1) through presto_tpu_torch's LocalEngine on the card: once
-cold (column uploads, capacity retries), WARM times warm and timed, once
-warm under torch.profiler. Prints per query the median warm wall time,
+Runs chip_smoke.py's main-path queries (`main_queries()`: TPC-H q01, q06, the
+q18 aggregation block, q03, q04, q13, q18, q21 and q22 at SF1) through
+presto_tpu_torch's LocalEngine on the card: once cold (column uploads,
+capacity retries), WARM times warm and timed, once warm under
+torch.profiler. Prints per query the median warm wall time,
 the device busy time (the union of kernel and copy intervals in the
 trace) beside the traced run's wall time, and the device time of the
-heaviest kernels; with --out, writes the same as JSON. Fails where there
-is no CUDA device.
+heaviest kernels; with --out, writes the same as JSON, with the device
+time of every kernel. Fails where there is no CUDA device.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import statistics
 import sys
 import time
 
-from chip_smoke import QUERIES, SF, card_line
+from chip_smoke import SF, card_line, main_queries
 
 TOP = 8        # heaviest device kernels listed per query
 WARM = 7       # timed warm runs per query (median reported)
@@ -74,7 +75,8 @@ def profile_query(engine, sql: str) -> dict:
             "device_busy_ms": busy_ms,
             "busy_share": busy_ms / traced_ms if traced_ms else None,
             "device_events": len(intervals),
-            "top_kernels_ms": [(n, us / 1e3) for n, us in heavy]}
+            "top_kernels_ms": [(n, us / 1e3) for n, us in heavy],
+            "kernels_ms": {n: us / 1e3 for n, us in by_name.items()}}
 
 
 def main() -> int:
@@ -92,7 +94,7 @@ def main() -> int:
     card = card_line()
     engine = LocalEngine(TpchConnector(SF))
     result = {"card": card, "sf": SF, "queries": {}}
-    for name, (sql, _ordered) in QUERIES.items():
+    for name, (sql, _ordered) in main_queries().items():
         r = profile_query(engine, sql)
         result["queries"][name] = r
         print(f"{name}: warm wall median {r['wall_ms']:.2f} ms (min "

@@ -9,17 +9,20 @@ CUDA device is present. On a machine with a card:
 (--noconftest: tests/conftest.py pins JAX to the CPU, and the card's
 machine has no JAX; this file imports none.)
 
-Tolerances: counts, indices, int64 sums, min and max exact; float64 sums
-within 1e-9 relative (the kernels sum in another order than the plain
-versions).
+Tolerances: counts, indices, hashes, join pairs and flags, int64 sums,
+min and max exact; float64 sums within 1e-9 relative (the kernels sum in
+another order than the plain versions).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from presto_tpu_torch import types as T
 from presto_tpu_torch.data import column as C
 from presto_tpu_torch.ops import aggregate as A
+from presto_tpu_torch.ops import join as J
+from presto_tpu_torch.ops import keys as K
 from presto_tpu_torch.ops import scan as S
 
 pytestmark = pytest.mark.gpu
@@ -132,6 +135,86 @@ def test_segment_reduce_kernel_matches_plain(cuda, dtype):
         _close(got["fsum"], plain["fsum"])
 
 
+def _key_columns(rng, n):
+    f = rng.normal(0, 1e3, n)
+    f[:6] = [np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf]
+    specs = [(T.BIGINT, rng.integers(-2 ** 62, 2 ** 62, n)),
+             (T.VARCHAR, rng.integers(0, 9, n).astype(np.int32)),
+             (T.BOOLEAN, rng.random(n) < 0.5),
+             (T.INTEGER, rng.integers(-5, 5, n).astype(np.int32)),
+             (T.DOUBLE, f), (T.REAL, f.astype(np.float32))]
+    return [C.Column.from_numpy(v, t, nulls=rng.random(n) < 0.1,
+                                device="cpu") for t, v in specs]
+
+
+def _on(col, dev):
+    return C.Column(col.values.to(dev), col.nulls.to(dev), col.type,
+                    col.dictionary)
+
+
+@pytest.mark.parametrize("fields", [(0,), (1, 2, 3), (4,), (5, 0)])
+def test_hash_columns_kernel_matches_plain(cuda, fields):
+    rng = np.random.default_rng(41)
+    cols = _key_columns(rng, 300_001)
+    plain = K.hash_columns([cols[f] for f in fields])
+    before = K.hash_columns.launches
+    got = K.hash_columns([_on(cols[f], cuda) for f in fields])
+    assert K.hash_columns.launches == before + 1
+    _same(got, plain)
+
+
+def _probe_inputs(rng, n_probe, n_build, key_range, dup):
+    bk = (rng.integers(0, key_range, n_build) if dup
+          else rng.permutation(key_range)[:n_build])
+    pk = rng.integers(0, key_range, n_probe)
+    bh = K.hash_columns([C.Column.from_numpy(bk, T.BIGINT, device="cpu")])
+    ph = K.hash_columns([C.Column.from_numpy(pk, T.BIGINT, device="cpu")])
+    bh = torch.where(torch.from_numpy(rng.random(bh.shape[0]) < 0.02),
+                     -2, bh)
+    ph = torch.where(torch.from_numpy(rng.random(ph.shape[0]) < 0.05),
+                     -1, ph)
+    bh_sorted, order = torch.sort(bh, stable=True)
+    pvals = [C.Column.from_numpy(pk, T.BIGINT, device="cpu").values]
+    bvals = [C.Column.from_numpy(bk, T.BIGINT, device="cpu").values]
+    return ph, bh_sorted, order, pvals, bvals
+
+
+@pytest.mark.parametrize("mode", [J.WINDOW, J.FIRST, J.LAST, J.ALL])
+@pytest.mark.parametrize("dup", [False, True])
+def test_join_probe_kernel_matches_plain(cuda, mode, dup):
+    rng = np.random.default_rng(43)
+    args = _probe_inputs(rng, 200_000, 60_000, 100_000, dup)
+    plain = J.join_probe(*args, mode)
+    on = [a.to(cuda) for a in args[:3]]
+    before = J.join_probe.launches
+    got = J.join_probe(*on, [v.to(cuda) for v in args[3]],
+                       [v.to(cuda) for v in args[4]], mode)
+    assert J.join_probe.launches == before + 1
+    for g, p in zip(got, plain):
+        assert (g is None) == (p is None)
+        if p is not None:
+            _same(g, p)
+
+
+@pytest.mark.parametrize("out_cap", [4096, 1 << 20])
+@pytest.mark.parametrize("left", [False, True])
+def test_join_expand_kernel_matches_plain(cuda, out_cap, left):
+    rng = np.random.default_rng(47)
+    ph, bh_sorted, order, pvals, bvals = _probe_inputs(
+        rng, 150_000, 120_000, 30_000, True)
+    lo, cnt, _, _ = J.join_probe(ph, bh_sorted, order, pvals, bvals,
+                                 J.WINDOW)
+    counts = cnt.clamp(min=1) if left else cnt
+    plain = J.join_expand(counts, cnt, lo, order, pvals, bvals, out_cap)
+    before = J.join_expand.launches
+    got = J.join_expand(counts.to(cuda), cnt.to(cuda), lo.to(cuda),
+                        order.to(cuda), [v.to(cuda) for v in pvals],
+                        [v.to(cuda) for v in bvals], out_cap)
+    assert J.join_expand.launches == before + 1
+    for g, p in zip(got, plain):
+        _same(g, p)
+
+
 def test_wrappers_refuse_mixed_devices(cuda):
     with pytest.raises(ValueError):
         S.segment_reduce(torch.zeros(4, dtype=torch.float64, device=cuda),
@@ -158,6 +241,14 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
          "where l_quantity < 24", False),
         ("select l_orderkey, sum(l_quantity) from lineitem "
          "group by l_orderkey having sum(l_quantity) > 250", False),
+        ("select c_count, count(*) from (select c_custkey, "
+         "count(o_orderkey) as c_count from customer left outer join "
+         "orders on c_custkey = o_custkey and o_comment not like "
+         "'%special%requests%' group by c_custkey) as c_orders "
+         "group by c_count", False),
+        ("select o_orderpriority, count(*) from orders where exists "
+         "(select * from lineitem where l_orderkey = o_orderkey and "
+         "l_commitdate < l_receiptdate) group by o_orderpriority", False),
     ]:
         a, b = gpu.execute_sql(sql), cpu.execute_sql(sql)
         if not ordered:
