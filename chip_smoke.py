@@ -3,39 +3,55 @@
 
     python3 chip_smoke.py
 
-Phases, each fatal on failure:
+Phases, each fatal on failure, each printing its seconds:
   1. the card's name and power limit (nvidia-smi); no CUDA device -> exit 2;
-  2. build every kernel of the port from presto_tpu_torch/csrc with nvcc;
-  3. generate the TPC-H SF1 tables on the host; each kernel (K1
-     direct_agg, K2 compact_indices, K3 segment_reduce, K4 hash_columns,
-     K5 join_probe, K6 join_expand) at the shapes TPC-H SF1 gives it on
-     the main path (K1-K3 on seeded numpy data; K4-K6 on q13's join of
-     customer with orders), held against its plain PyTorch version on the
-     card (counts, indices, hashes, join pairs, min and max exact; float64
-     sums within 1e-9 relative, since the kernels sum in another order),
-     and timed with CUDA events beside the plain version, one PyTorch
-     library call (none for K4) and the card's bound; K5 also in the
-     merge join's modes (q18's probe of lineitem into orders, the dup
-     count's self-probe), printed on a line of their own;
-  4. the main path at SF1: LocalEngine(TpchConnector(1.0)) on the card runs
-     TPC-H q01, q06, the q18 aggregation block (having sum > 300), q03,
-     q04, q13, q18, q21 and q22, each cold and warm; the cold run's rows
-     are held against the warm run's, and the warm run's against the
-     same engine on the CPU and, for q01, q06, the q18 block,
-     q03, q04, q13 and q18, against an independent numpy computation over
-     the generated tables; every kernel must have been launched here;
-  5. all 22 TPC-H queries at SF 0.01 on the card, cold and warm, the rows
-     of both runs held against sqlite over the same generated tables
-     (presto_tpu_torch/testing/sqlite_oracle.py);
+  2. build every kernel of the port from presto_tpu_torch/csrc with nvcc
+     (one nvcc per source, all started together);
+  3. generate the TPC-H SF1 and TPC-DS SF1 tables on the host; each
+     kernel (K1 direct_agg, K2 compact_indices, K3 segment_reduce, K4
+     hash_columns, K5 join_probe, K6 join_expand, K7 segmented_scan, K8
+     key_change_flags, K9 window_frame) at the shapes SF1 gives it on the
+     main path (K1-K3 on seeded numpy data; K4-K6 on q13's join of
+     customer with orders; K7 on TPC-DS q51's largest window input and on
+     orders partitioned by o_custkey; K8 and K9 on that orders page), held
+     against its plain PyTorch version on the card (counts, indices,
+     hashes, join pairs, flags, positions, min and max exact; float64 sums
+     within 1e-9 relative, since the kernels sum in another order), and
+     timed with CUDA events beside the plain version, one PyTorch library
+     call where one computes the same function, and the card's bound; K5's
+     merge-path modes, K7's other scans and K9's other window functions
+     are printed on lines of their own;
+  4. the main paths at SF1, each with the kernels' launch counts set to 0
+     just before and read just after:
+     a. LocalEngine(TpchConnector(1.0)) on the card runs TPC-H q01, q06,
+        the q18 aggregation block (having sum > 300), q03, q04, q13, q18,
+        q21 and q22, each cold and warm; the cold run's rows are held
+        against the warm run's, and the warm run's against the same
+        engine on the CPU and, for q01, q06, the q18 block, q03, q04, q13
+        and q18, against an independent numpy computation over the
+        generated tables; K1-K6 must have been launched here;
+     b. the breadth path: TPC-DS q47, q51, q67, q70, q16, q75 and q97
+        (LocalEngine(TpcdsConnector(1.0))) and four TPC-H SF1 queries over
+        windows and a distinct mark, each cold and warm on the card, the
+        warm rows held against the cold ones and against the engine on
+        the CPU; K7-K9 must have been launched here;
+  5. all 22 TPC-H queries at SF 0.01 and all 99 TPC-DS queries at SF
+     0.002 on the card, cold and warm, and the window and grouping-set
+     queries of tests/test_window_outer.py and tests/test_grouping_sets.py
+     at TPC-H SF 0.01, the rows of both runs held against sqlite over the
+     same generated tables (presto_tpu_torch/testing/sqlite_oracle.py);
      every kernel must have been launched here too.
 
 The JSON kernel report is printed two lines before the end, then the
 card's name and power limit, then {"ok": true, "device": {...}} as the
-last line. Imports nothing of JAX or presto_tpu.
+last line; each kernel's `launches` there is its count over the two main
+paths of phase 4. Imports nothing of JAX or presto_tpu: the query lists
+of the test files are read from their source with `ast`.
 """
 
 from __future__ import annotations
 
+import ast
 import datetime
 import importlib.util
 import json
@@ -48,15 +64,61 @@ from pathlib import Path
 import numpy as np
 
 
-def tpch_queries() -> dict:
-    """The 22 TPC-H queries of tests/tpch_queries.py (number -> SQL),
-    loaded by path: the name `tests` may belong to an installed
-    package."""
-    path = Path(__file__).resolve().parent / "tests" / "tpch_queries.py"
-    spec = importlib.util.spec_from_file_location("tpch_queries", path)
+TESTS = Path(__file__).resolve().parent / "tests"
+
+
+def _load_tests_module(name: str):
+    """tests/<name>.py loaded by path: the name `tests` may belong to an
+    installed package."""
+    spec = importlib.util.spec_from_file_location(name, TESTS / f"{name}.py")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.QUERIES
+    return module
+
+
+def tpch_queries() -> dict:
+    """The 22 TPC-H queries of tests/tpch_queries.py (number -> SQL)."""
+    return _load_tests_module("tpch_queries").QUERIES
+
+
+def tpcds_queries():
+    """tests/tpcds_queries.py: QUERIES (number -> SQL) and the sqlite
+    spellings (number -> SQL) of tests/test_tpcds.py:run_case."""
+    m = _load_tests_module("tpcds_queries")
+    return m.QUERIES, {22: m.Q22_SQLITE, 27: m.Q27_SQLITE,
+                       **m.SQLITE_OVERRIDES}
+
+
+def _literal_lists(name: str, names) -> dict:
+    """Module-level list literals of tests/<name>.py, read with `ast`
+    (those test modules import the JAX package, which this script may
+    not)."""
+    tree = ast.parse((TESTS / f"{name}.py").read_text())
+    out = {}
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and len(node.targets) == 1 \
+                and getattr(node.targets[0], "id", None) in names:
+            out[node.targets[0].id] = ast.literal_eval(node.value)
+    missing = set(names) - set(out)
+    if missing:
+        fail(f"tests/{name}.py has no literal {sorted(missing)}")
+    return out
+
+
+def breadth_sqlite_queries() -> dict:
+    """name -> (SQL, sqlite SQL) of the window queries of
+    tests/test_window_outer.py and the grouping-set cases of
+    tests/test_grouping_sets.py (TPC-H SF 0.01)."""
+    w = _literal_lists("test_window_outer", (
+        "WINDOW_QUERIES", "FRAME_QUERIES", "BOUNDED_MINMAX_QUERIES"))
+    g = _literal_lists("test_grouping_sets", ("CASES",))
+    out = {}
+    for key in ("WINDOW_QUERIES", "FRAME_QUERIES", "BOUNDED_MINMAX_QUERIES"):
+        for i, sql in enumerate(w[key]):
+            out[f"{key.split('_')[0].lower()}-{i}"] = (sql, sql)
+    for name, sql, exp in g["CASES"]:
+        out[f"grouping-{name}"] = (sql, exp)
+    return out
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 RTOL_SUM = 1e-9
@@ -73,6 +135,26 @@ having sum(l_quantity) > 300
 """
 
 SQLITE_SF = 0.01                   # scale factor of the sqlite phase
+TPCDS_SF = 1.0                     # TPC-DS scale factor of the breadth path
+TPCDS_SQLITE_SF = 0.002            # TPC-DS scale factor of the sqlite phase
+TPCDS_MAIN = (47, 51, 67, 70, 16, 75, 97)
+
+#: TPC-H SF1 queries of the breadth path: name -> (SQL, page compared
+#: column by column instead of as Python rows: millions of output rows)
+TPCH_BREADTH = {
+    "h_running_sum": (
+        "select o_custkey, o_orderdate, o_orderkey, sum(o_totalprice) over "
+        "(partition by o_custkey order by o_orderdate) from orders", True),
+    "h_bounded_min": (
+        "select o_orderkey, min(o_totalprice) over (order by o_orderkey "
+        "rows between 3 preceding and 3 following) from orders", True),
+    "h_rank": (
+        "select l_orderkey, l_linenumber, rank() over (partition by "
+        "l_orderkey order by l_extendedprice desc) from lineitem", True),
+    "h_distinct": (
+        "select l_returnflag, count(*), count(distinct l_suppkey) "
+        "from lineitem group by 1", False),
+}
 
 
 def main_queries() -> dict:
@@ -540,6 +622,395 @@ def kernel_join_expand(conn, dev, repeat):
             "library_ms": cuda_time_ms(library, repeat)}
 
 
+def capture_windows(engine, sql: str) -> list:
+    """The window_page calls (page, partition fields, order keys, specs) a
+    query makes, recorded while it runs on `engine`."""
+    from presto_tpu_torch.exec import executor as X
+    calls = []
+    orig = X.window_page
+
+    def record(page, partition_fields, order_keys, specs):
+        calls.append((page, partition_fields, order_keys, specs))
+        return orig(page, partition_fields, order_keys, specs)
+
+    X.window_page = record
+    try:
+        engine.execute_sql(sql)
+    finally:
+        X.window_page = orig
+    return calls
+
+
+def _orders_window(conn, dev):
+    """orders at SF1 (1.5M rows in a 2,097,152-row page) partitioned by
+    o_custkey and ordered by o_orderdate, as the running-sum query of the
+    breadth path sorts it: (page, sorted window)."""
+    from presto_tpu_torch.ops import window as W
+    from presto_tpu_torch.ops.keys import SortKey
+    page = conn.table("orders").page(
+        ["o_custkey", "o_orderdate", "o_totalprice", "o_orderkey"],
+        device=dev)
+    return page, W.sort_window(page, (0,), [SortKey(1)])
+
+
+def _scan_case(what, x, op, reverse, seg, repeat, library=None) -> dict:
+    """One segmented_scan call held against its plain version (exact, or
+    float64 sums within RTOL_SUM) and timed beside it, its bound and a
+    library call where one computes the same function."""
+    from presto_tpu_torch.ops import scan as S
+
+    def kernel():
+        return S.segmented_scan(x, op, reverse, seg)
+
+    def plain():
+        return S._segmented_scan_plain(x, op, reverse, seg)
+
+    got, want = kernel(), plain()
+    if op == "add" and x.dtype.is_floating_point:
+        err = close(got, want, RTOL_SUM)
+    else:
+        if not exact(got, want):
+            fail(f"segmented_scan ({what}) differs from the plain version")
+        err = 0.0
+    n = x.shape[0]
+    # each value (or present flag) and segment flag read once, each result
+    # written once
+    nbytes = n * (x.element_size() + (1 if seg is not None else 0)
+                  + got.element_size())
+    return {"case": what, "rows": n, "max_abs_err": err,
+            "ms": cuda_time_ms(kernel, repeat),
+            "plain_ms": cuda_time_ms(plain, max(repeat // 4, 2)),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "library_ms": (cuda_time_ms(library, repeat)
+                           if library is not None else None)}
+
+
+def kernel_seg_scan(q51_calls, conn, dev, repeat):
+    """K7 at the breadth path's SF1 shapes: the running sum and running
+    max of TPC-DS q51's largest window inputs (partition by item, order by
+    date, ROWS UNBOUNDED PRECEDING), the last-present-position fill of
+    orders' partition starts (partition by o_custkey), and, for a library
+    yardstick, the same values scanned without segments beside
+    torch.cumsum and torch.cummax. The kernel line is the running sum:
+    no single PyTorch call computes a segmented sum."""
+    import torch
+    from presto_tpu_torch.ops import window as W
+    cases = []
+    for kind in ("sum", "max"):
+        page, pf, ok, specs = max(
+            (c for c in q51_calls if any(sp.kind == kind for sp in c[3])),
+            key=lambda c: int(c[0].num_rows))
+        spec = next(sp for sp in specs if sp.kind == kind)
+        sw = W.sort_window(page, pf, ok)
+        live = sw.s_valid & ~page.columns[spec.field].nulls[sw.perm]
+        v = page.columns[spec.field].values[sw.perm].to(torch.float64)
+        if kind == "sum":
+            x = torch.where(live, v, 0.0)
+        else:
+            x = torch.where(live, v, float("-inf"))
+        rows = int(page.num_rows)
+        cases.append(_scan_case(f"q51 running {kind} ({rows} rows)", x,
+                                "add" if kind == "sum" else "max", False,
+                                sw.part_start, repeat))
+        if kind == "sum":
+            cases.append(_scan_case(
+                f"q51 {kind} values, one segment", x, "add", False, None,
+                repeat, library=lambda x=x: torch.cumsum(x, 0)))
+        else:
+            cases.append(_scan_case(
+                f"q51 {kind} values, one segment", x, "max", False, None,
+                repeat, library=lambda x=x: torch.cummax(x, 0)))
+    _page, sw = _orders_window(conn, dev)
+    cases.append(_scan_case("orders partition starts, last present",
+                            sw.part_start, "last", False, None, repeat))
+    cases.append(_scan_case("orders partition ends, last present reversed",
+                            sw.part_end, "last", True, None, repeat))
+    print("segmented_scan cases: " + json.dumps(cases), flush=True)
+    line = cases[0]
+    return {"name": "segmented_scan", "route": "cuda",
+            "source": "presto_tpu_torch/csrc/seg_scan.cu",
+            "replaces": "presto_tpu/ops/scan.py:104",
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": line["ms"], "plain_ms": line["plain_ms"],
+            "bound_ms": line["bound_ms"], "bound_by": "bytes",
+            # no single PyTorch call computes a segmented running sum
+            "library_ms": None}
+
+
+def kernel_key_change(conn, dev, repeat):
+    """K8 at the running-sum query's SF1 shape: the partition and peer
+    flags of orders (2,097,152-row page) sorted by o_custkey, o_orderdate;
+    also the first flags of a distinct mark over the same keys."""
+    from presto_tpu_torch.ops import keys as K
+    page, sw = _orders_window(conn, dev)
+    perm, keys = sw.perm, sw.keys
+
+    def kernel():
+        return K.key_change_flags(perm, keys, page.num_rows, 1,
+                                  K.WINDOW_FLAGS)
+
+    def plain():
+        return K._key_change_plain(perm, keys, page.num_rows, 1,
+                                   K.WINDOW_FLAGS)
+
+    for (g, w) in zip(kernel(), plain()):
+        if not exact(g, w):
+            fail("key_change_flags differs from the plain version")
+    first = K.key_change_flags(perm, keys, page.num_rows, 0, K.FIRST_FLAGS)
+    want = K._key_change_plain(perm, keys, page.num_rows, 0, K.FIRST_FLAGS)
+    if not exact(first[0], want[0]):
+        fail("key_change_flags (first flags) differs from the plain version")
+    cap = perm.shape[0]
+    # perm read (8 B), each key's null flag and value (1 + 8 B custkey,
+    # 1 + 4 B orderdate), two flags written
+    nbytes = cap * (8 + 9 + 5 + 2)
+    return {"name": "key_change_flags", "route": "cuda",
+            "source": "presto_tpu_torch/csrc/keys.cu",
+            "replaces": "presto_tpu/ops/window.py:171",
+            "max_abs_err": 0.0,
+            "ms": cuda_time_ms(kernel, repeat),
+            "plain_ms": cuda_time_ms(plain, max(repeat // 4, 2)),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            # no single PyTorch call compares keys across a permutation
+            "library_ms": None}
+
+
+def kernel_window_frame(conn, dev, repeat):
+    """K9 at the running-sum query's SF1 shape, over orders partitioned by
+    o_custkey and ordered by o_orderdate: rank, the running sum of
+    o_totalprice (the SQL default frame, peer-aware) and the min of
+    o_totalprice over ROWS 3 PRECEDING .. 3 FOLLOWING. The kernel line is
+    the running sum."""
+    from presto_tpu_torch.ops import window as W
+    from presto_tpu_torch.types import BIGINT, DOUBLE
+    page, sw = _orders_window(conn, dev)
+    cap = page.capacity
+    specs = [
+        # (spec, int64 inputs the function reads besides perm)
+        ("rank", W.WindowSpec("rank", None, BIGINT), 2),
+        ("running sum", W.WindowSpec("sum", 2, DOUBLE), 4),
+        ("min, 3 preceding .. 3 following",
+         W.WindowSpec("min", 2, DOUBLE, frame=W.Frame(
+             "rows", "preceding", 3, "following", 3)), 4),
+    ]
+    cases = []
+    for what, spec, reads in specs:
+        fi = W.frame_inputs(page, sw, spec)
+
+        def kernel(spec=spec, fi=fi):
+            return W.run_frame(page, sw, spec, fi)
+
+        def plain(spec=spec, fi=fi):
+            return W._window_frame_plain(
+                spec.kind, fi.frame, fi.iparams, fi.dparams, sw.perm,
+                page.num_rows, sw.ps, sw.pe, sw.qs, sw.qe, fi.vals,
+                fi.nulls, fi.aux_i, fi.aux_v, fi.out_dtype)
+
+        (gv, gn), (pv, pn) = kernel(), plain()
+        if not exact(gn, pn):
+            fail(f"window_frame ({what}) nulls differ from the plain version")
+        err = 0.0
+        if spec.kind == "sum":
+            err = close(gv, pv, RTOL_SUM)
+        elif not exact(gv, pv):
+            fail(f"window_frame ({what}) differs from the plain version")
+        # perm and `reads` int64 position or prefix arrays read (8 B
+        # each), the value (8 B) and null flag written
+        nbytes = cap * (8 + 8 * reads + 9)
+        cases.append({"case": what, "rows": cap, "max_abs_err": err,
+                      "ms": cuda_time_ms(kernel, repeat),
+                      "plain_ms": cuda_time_ms(plain, max(repeat // 4, 2)),
+                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+    print("window_frame cases: " + json.dumps(cases), flush=True)
+    line = cases[1]
+    return {"name": "window_frame", "route": "cuda",
+            "source": "presto_tpu_torch/csrc/window.cu",
+            "replaces": "presto_tpu/ops/window.py:126",
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": line["ms"], "plain_ms": line["plain_ms"],
+            "bound_ms": line["bound_ms"], "bound_by": "bytes",
+            # no single PyTorch call evaluates a window frame
+            "library_ms": None}
+
+
+def _device_kernels(fn) -> int:
+    """Device kernels one call of `fn` launches (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for ev in prof.events()
+               if ev.device_type.name == "CUDA")
+
+
+def _full_outer_append_row(ds_conn, repeat) -> dict:
+    """full_outer_append (torch + K2) at TPC-DS q97's SF1 shape: the
+    arguments of its largest call while q97 runs on the card."""
+    from presto_tpu_torch.exec.engine import LocalEngine
+    from presto_tpu_torch.ops import join as J
+    calls = []
+    orig = J.full_outer_append
+
+    def record(*args):
+        calls.append(args)
+        return orig(*args)
+
+    J.full_outer_append = record
+    try:
+        LocalEngine(ds_conn).execute_sql(tpcds_queries()[0][97])
+    finally:
+        J.full_outer_append = orig
+    left, probe, build, unmatched = max(
+        calls, key=lambda c: c[1].capacity + c[2].capacity)
+
+    def fn():
+        return orig(left, probe, build, unmatched)
+
+    pcap, bcap = probe.capacity, build.capacity
+    width = sum(c.values.element_size() + 1 for c in left.columns)
+    # the left page and the build columns read, the unmatched flags read,
+    # the appended page written (values and null flags)
+    nbytes = (pcap * width
+              + bcap * (sum(c.values.element_size() + 1
+                            for c in build.columns) + 1)
+              + (pcap + bcap) * width)
+    return {"stage": "full_outer_append", "shape": "q97 FULL join",
+            "rows": pcap + bcap, "ms": cuda_time_ms(fn, repeat),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "device_kernels": _device_kernels(fn)}
+
+
+def torch_op_rows(conn, ds_conn, dev, repeat) -> list:
+    """Card times of the main path's torch-op stages that have no kernel
+    of their own, at SF1 shapes, beside their bounds (bytes each input is
+    read and each output written once, over HBM_BYTES_PER_S):
+    - lex_perm: the window sort of the breadth path's rank over lineitem
+      (8,388,608-row page: validity, l_orderkey null rank and value,
+      l_extendedprice null rank and complemented value), a stable
+      torch.sort per lane;
+    - sort_perm: orders (2,097,152-row page) by o_totalprice desc,
+      o_orderdate, the ORDER BY of q18's shape over a whole table;
+    - compile_expr: q01's filter and its projections over lineitem, the
+      elementwise passes its fused aggregation evaluates;
+    - full_outer_append: TPC-DS q97's FULL join tail."""
+    import torch
+    from presto_tpu_torch.exec.engine import LocalEngine
+    from presto_tpu_torch.expr.compile import compile_expr
+    from presto_tpu_torch.ops.keys import SortKey, descending, \
+        group_values, lex_perm, sort_perm
+    from presto_tpu_torch.plan.nodes import AggregationNode, FilterNode, \
+        ProjectNode, TableScanNode
+    rows = []
+    li = conn.table("lineitem").page(["l_orderkey", "l_extendedprice"],
+                                     device=dev)
+    ok, price = li.columns
+    lanes = [(~li.row_valid()).to(torch.int8), ok.nulls.to(torch.int8),
+             group_values(ok), price.nulls.to(torch.int8),
+             descending(price.values)]
+    cap = li.capacity
+    nbytes = sum(t.element_size() for t in lanes) * cap + 8 * cap
+    rows.append({"stage": "lex_perm", "shape": "lineitem rank window",
+                 "rows": cap, "ms": cuda_time_ms(lambda: lex_perm(lanes),
+                                                 repeat),
+                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "device_kernels": _device_kernels(lambda: lex_perm(lanes))})
+    orders = conn.table("orders").page(["o_totalprice", "o_orderdate"],
+                                       device=dev)
+    keys = [SortKey(0, ascending=False), SortKey(1)]
+    cap = orders.capacity
+    # key values and null flags read, the permutation written
+    nbytes = cap * ((8 + 1) + (4 + 1) + 8)
+    rows.append({"stage": "sort_perm", "shape": "orders by price desc, date",
+                 "rows": cap,
+                 "ms": cuda_time_ms(lambda: sort_perm(orders, keys), repeat),
+                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "device_kernels": _device_kernels(
+                     lambda: sort_perm(orders, keys))})
+
+    node = LocalEngine(conn).plan_sql(tpch_queries()[1])
+    while not isinstance(node, AggregationNode):
+        node = node.children()[0]
+    chain, node = [], node.source      # the chain the aggregation fuses
+    while not isinstance(node, TableScanNode):
+        chain.append(node)
+        node = node.source
+    chain.reverse()
+    page = conn.table(node.table).page(list(node.columns), device=dev)
+    steps = [(compile_expr(n.predicate),) if isinstance(n, FilterNode)
+             else tuple(compile_expr(e) for e in n.expressions)
+             for n in chain]
+    n_in = len(page.columns)
+
+    def evaluate():
+        p = page
+        for n, fns in zip(chain, steps):
+            cols = tuple(f(p) for f in fns)
+            if isinstance(n, ProjectNode):
+                p = type(page)(cols, p.num_rows, ())
+        return p
+
+    out = evaluate()
+    cap = page.capacity
+    # the scanned columns read once (values and null flags), the filter's
+    # mask (1 B) and the projected columns (values and null flags)
+    # written once
+    nbytes = cap * (sum(c.values.element_size() + 1 for c in page.columns)
+                    + 1 + sum(c.values.element_size() + 1
+                              for c in out.columns[n_in:]))
+    rows.append({"stage": "compile_expr", "shape": "q01 filter + project",
+                 "rows": cap, "ms": cuda_time_ms(evaluate, repeat),
+                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "device_kernels": _device_kernels(evaluate)})
+    rows.append(_full_outer_append_row(ds_conn, repeat))
+    print("torch-op stages at SF1: " + json.dumps(rows), flush=True)
+    return rows
+
+
+class CallCounter:
+    """Counts calls of the torch-op stages on the card on a main path
+    (the CPU comparisons do not count): the stable key sorts of
+    lex_perm/sort_perm (ops/keys._argsort, one torch.sort each), the
+    evaluations of compiled expressions (exec/executor's compile_expr)
+    and the FULL joins' appends (ops/join.full_outer_append)."""
+
+    def __init__(self):
+        from presto_tpu_torch.exec import executor as X
+        from presto_tpu_torch.ops import keys as K
+        from presto_tpu_torch.ops import join as J
+        self.counts = {"key_sorts": 0, "expression_evaluations": 0,
+                       "full_outer_appends": 0}
+        argsort, compile_expr = K._argsort, X.compile_expr
+        append = J.full_outer_append
+
+        def counted_append(left, probe, build, unmatched):
+            self.counts["full_outer_appends"] += unmatched.is_cuda
+            return append(left, probe, build, unmatched)
+        J.full_outer_append = counted_append
+
+        def counted_argsort(v):
+            self.counts["key_sorts"] += v.is_cuda
+            return argsort(v)
+
+        def counted_compile(expr):
+            fn = compile_expr(expr)
+
+            def run(page):
+                self.counts["expression_evaluations"] += \
+                    page.device.type == "cuda"
+                return fn(page)
+            return run
+
+        K._argsort, X.compile_expr = counted_argsort, counted_compile
+
+    def reset(self) -> None:
+        for k in self.counts:
+            self.counts[k] = 0
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -651,11 +1122,12 @@ def rows_match(actual, expected, what: str, ordered: bool,
                 fail(f"{what}: row {i}: {a} != {e}")
 
 
-def _run_queries(engine, queries, counters, what) -> tuple:
+def _run_queries(engine, queries, counters, what, required=None) -> tuple:
     """Each query cold then warm on the card, with the kernels' launch
     counts set to 0 just before and read just after. Returns (rows of
     the cold and the warm run, walls, launches per query and run,
-    launches in all)."""
+    launches in all). Fails where a kernel of `required` (names; default
+    all) was not launched."""
     import torch
     rows, walls, per_query = {}, {}, {}
     for k in counters:
@@ -672,7 +1144,7 @@ def _run_queries(engine, queries, counters, what) -> tuple:
                 [k.launches - b for k, b in zip(counters, before)])
     launches = {k.__name__: k.launches for k in counters}
     for name, n in launches.items():
-        if n == 0:
+        if n == 0 and (required is None or name in required):
             fail(f"kernel {name} was not launched on the {what}")
     return rows, walls, per_query, launches
 
@@ -685,8 +1157,9 @@ def main_path(conn, counters) -> dict:
     if gpu.device.type != "cuda":
         fail(f"the engine chose {gpu.device}, not the card")
     queries = main_queries()
+    required = [k.__name__ for k in counters[:6]]
     gpu_rows, walls, per_query, launches = _run_queries(
-        gpu, queries, counters, "main path")
+        gpu, queries, counters, "main path", required)
     for name, (_sql, ordered) in queries.items():
         cold, warm = gpu_rows[name]
         rows_match(cold, warm, f"{name} card cold vs warm", ordered)
@@ -710,12 +1183,111 @@ def main_path(conn, counters) -> dict:
     return launches
 
 
+def breadth_queries(ds_engine, h_engine) -> dict:
+    """The breadth path: name -> (engine, SQL, ordered, compared as a
+    page)."""
+    ds, _sqlite = tpcds_queries()
+    out = {f"ds{q:02d}": (ds_engine, ds[q], "order by" in ds[q].lower(),
+                          False) for q in TPCDS_MAIN}
+    for name, (sql, as_page) in TPCH_BREADTH.items():
+        out[name] = (h_engine, sql, False, as_page)
+    return out
+
+
+def run_query(engine, sql: str, as_page: bool):
+    """A query's result: Python rows (LocalEngine.execute_sql), or for a
+    query of millions of rows the executor's page, left on its device."""
+    import torch
+    if not as_page:
+        return engine.execute_sql(sql)
+    page = engine.executor.execute(engine.plan_sql(sql))
+    if page.device.type == "cuda":
+        torch.cuda.synchronize()
+    return page
+
+
+def pages_match(a, b, what: str) -> None:
+    """Two pages (possibly on different devices) hold the same rows in the
+    same order: nulls and integer values exact, float values within
+    RTOL_SUM relative."""
+    import torch
+    n = int(a.num_rows)
+    if n != int(b.num_rows) or len(a.columns) != len(b.columns):
+        fail(f"{what}: {n} rows, expected {int(b.num_rows)}")
+    for i, (ca, cb) in enumerate(zip(a.columns, b.columns)):
+        na, nb = ca.nulls[:n].cpu(), cb.nulls[:n].cpu()
+        if not torch.equal(na, nb):
+            fail(f"{what}: nulls of column {i} differ")
+        va = ca.values[:n].cpu()[~na]
+        vb = cb.values[:n].cpu()[~nb]
+        if va.is_floating_point():
+            close(va, vb, RTOL_SUM)
+        elif not torch.equal(va, vb):
+            fail(f"{what}: values of column {i} differ")
+
+
+def breadth_path(ds_conn, h_conn, counters) -> dict:
+    """Phase 4b: TPC-DS and TPC-H SF1 queries over windows, grouping
+    sets, UNION ALL and distinct marks, cold and warm on the card, held
+    against the engine on the CPU."""
+    import torch
+    from presto_tpu_torch.exec.engine import LocalEngine
+
+    gpu = {"ds": LocalEngine(ds_conn), "h": LocalEngine(h_conn)}
+    queries = breadth_queries(gpu["ds"], gpu["h"])
+    results, walls, per_query = {}, {}, {}
+    for k in counters:
+        k.launches = 0
+    for name, (engine, sql, _ordered, as_page) in queries.items():
+        results[name], walls[name] = [], []
+        for _run in range(2):
+            before = [k.launches for k in counters]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            results[name].append(run_query(engine, sql, as_page))
+            walls[name].append(time.perf_counter() - t)
+            per_query.setdefault(name, []).append(
+                [k.launches - b for k, b in zip(counters, before)])
+    launches = {k.__name__: k.launches for k in counters}
+    for k in counters[6:]:
+        if launches[k.__name__] == 0:
+            fail(f"kernel {k.__name__} was not launched on the breadth path")
+
+    cpu = {"ds": LocalEngine(ds_conn, device="cpu"),
+           "h": LocalEngine(h_conn, device="cpu")}
+    names = [k.__name__ for k in counters]
+    for name, (engine, sql, ordered, as_page) in queries.items():
+        cold, warm = results[name]
+        which = "ds" if engine is gpu["ds"] else "h"
+        if as_page:
+            pages_match(cold, warm, f"{name} card cold vs warm")
+        else:
+            rows_match(cold, warm, f"{name} card cold vs warm", ordered)
+        t = time.perf_counter()
+        want = run_query(cpu[which], sql, as_page)
+        cpu_s = time.perf_counter() - t
+        if as_page:
+            pages_match(warm, want, f"{name} card vs CPU")
+            n = int(want.num_rows)
+        else:
+            rows_match(warm, want, f"{name} card vs CPU", ordered)
+            n = len(want)
+        scale = f"TPC-DS SF{TPCDS_SF}" if which == "ds" else f"TPC-H SF{SF}"
+        print(f"{name}: {n} rows; card wall cold {walls[name][0] * 1e3:.1f} "
+              f"ms, warm {walls[name][1] * 1e3:.1f} ms; CPU {cpu_s:.2f} s, "
+              f"compared at {scale}; launches per run {names} cold "
+              f"{per_query[name][0]} warm {per_query[name][1]}", flush=True)
+    return launches
+
+
 def sqlite_phase(counters) -> None:
-    """All 22 TPC-H queries at SQLITE_SF on the card against sqlite."""
-    from presto_tpu_torch.connectors import TpchConnector
+    """All 22 TPC-H queries and the window and grouping-set queries of
+    the test files at SQLITE_SF, and all 99 TPC-DS queries at
+    TPCDS_SQLITE_SF, on the card against sqlite."""
+    from presto_tpu_torch.connectors import TpcdsConnector, TpchConnector
     from presto_tpu_torch.exec.engine import LocalEngine
     from presto_tpu_torch.testing.sqlite_oracle import compare_rows, \
-        load_tpch, to_sqlite
+        compare_tpcds_rows, load_tpcds, load_tpch, to_sqlite
 
     conn = TpchConnector(SQLITE_SF)
     t = time.perf_counter()
@@ -725,10 +1297,18 @@ def sqlite_phase(counters) -> None:
     engine = LocalEngine(conn)
     queries = {f"q{q:02d}": (sql, "order by" in sql.lower())
                for q, sql in sorted(tpch_queries().items())}
+    breadth = breadth_sqlite_queries()
+    queries.update({name: (sql, False) for name, (sql, _e) in
+                    breadth.items()})
     rows, walls, _per_query, launches = _run_queries(
         engine, queries, counters, f"SF{SQLITE_SF} phase")
     for name, (sql, _ordered) in queries.items():
-        expected = db.execute(to_sqlite(sql)).fetchall()
+        if name in breadth:
+            exp = breadth[name][1]
+            expected = db.execute(exp if name.startswith("grouping")
+                                  else to_sqlite(exp)).fetchall()
+        else:
+            expected = db.execute(to_sqlite(sql)).fetchall()
         types = engine.plan_sql(sql).output_types
         try:
             for run, got in zip(("cold", "warm"), rows[name]):
@@ -741,6 +1321,34 @@ def sqlite_phase(counters) -> None:
               f"warm {walls[name][1] * 1e3:.1f} ms", flush=True)
     print(f"SF{SQLITE_SF} launches: {launches}", flush=True)
 
+    ds_sql, ds_sqlite = tpcds_queries()
+    conn = TpcdsConnector(TPCDS_SQLITE_SF)
+    t = time.perf_counter()
+    db = load_tpcds(conn)
+    print(f"sqlite loaded with TPC-DS SF{TPCDS_SQLITE_SF} in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    engine = LocalEngine(conn)
+    queries = {f"ds{q:02d}": (sql, False) for q, sql in sorted(ds_sql.items())}
+    rows, walls, _per_query, launches = _run_queries(
+        engine, queries, counters, f"TPC-DS SF{TPCDS_SQLITE_SF} phase")
+    for q, sql in sorted(ds_sql.items()):
+        name = f"ds{q:02d}"
+        expected = db.execute(to_sqlite(ds_sqlite.get(q) or sql)).fetchall()
+        types = engine.plan_sql(sql).output_types
+        try:
+            for run, got in zip(("cold", "warm"), rows[name]):
+                compare_tpcds_rows(got, types, expected,
+                                   f"{name} card ({run}) vs sqlite")
+        except AssertionError as e:
+            fail(str(e))
+    total = sum(w[1] for w in walls.values())
+    print(f"TPC-DS SF{TPCDS_SQLITE_SF}: all {len(ds_sql)} queries equal "
+          f"sqlite's, cold and warm on the card; warm walls sum "
+          f"{total:.2f} s, slowest "
+          f"{max(walls, key=lambda k: walls[k][1])} "
+          f"{max(w[1] for w in walls.values()) * 1e3:.1f} ms", flush=True)
+    print(f"TPC-DS SF{TPCDS_SQLITE_SF} launches: {launches}", flush=True)
+
 
 def main() -> int:
     import torch
@@ -748,51 +1356,88 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from presto_tpu_torch import native
-    from presto_tpu_torch.connectors import TpchConnector
+    from presto_tpu_torch.connectors import TpcdsConnector, TpchConnector
     from presto_tpu_torch.data.column import compact_indices
+    from presto_tpu_torch.exec.engine import LocalEngine
     from presto_tpu_torch.ops.aggregate import direct_agg
     from presto_tpu_torch.ops.join import join_expand, join_probe
-    from presto_tpu_torch.ops.keys import hash_columns
-    from presto_tpu_torch.ops.scan import segment_reduce
+    from presto_tpu_torch.ops.keys import hash_columns, key_change_flags
+    from presto_tpu_torch.ops.scan import segment_reduce, segmented_scan
+    from presto_tpu_torch.ops.window import window_frame
 
     t_start = time.perf_counter()
     card = card_line()
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     built = native.build()
-    print(f"built {len(built)} kernel libraries in "
+    print(f"phase 2: built {len(built)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, info in built.items():
         for line in info["report"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    t_phase = time.perf_counter()
     conn = TpchConnector(SF)
-    t0 = time.perf_counter()
     for table in ("region", "nation", "supplier", "customer", "part",
                   "partsupp", "orders", "lineitem"):
         conn.table(table)
     n_lineitem = conn.table("lineitem").num_rows
     print(f"TPC-H SF{SF}: tables generated in "
-          f"{time.perf_counter() - t0:.1f} s ({n_lineitem} lineitem rows)",
+          f"{time.perf_counter() - t_phase:.1f} s ({n_lineitem} lineitem "
+          f"rows)", flush=True)
+    t0 = time.perf_counter()
+    ds_conn = TpcdsConnector(TPCDS_SF)
+    for table in ("store_sales", "catalog_sales", "web_sales",
+                  "store_returns", "catalog_returns", "web_returns",
+                  "inventory", "date_dim", "item", "customer"):
+        ds_conn.table(table)
+    print(f"TPC-DS SF{TPCDS_SF}: tables generated in "
+          f"{time.perf_counter() - t0:.1f} s "
+          f"({ds_conn.table('store_sales').num_rows} store_sales rows)",
           flush=True)
 
     rng = np.random.default_rng(SEED)
+    ds_sql, _ = tpcds_queries()
+    q51_calls = capture_windows(LocalEngine(ds_conn), ds_sql[51])
     report = [kernel_direct_agg(rng, dev, REPEAT),
               kernel_compact(rng, dev, REPEAT),
               kernel_segment_reduce(rng, dev, REPEAT),
               kernel_hash(conn, dev, REPEAT),
               kernel_join_probe(conn, dev, REPEAT),
-              kernel_join_expand(conn, dev, REPEAT)]
+              kernel_join_expand(conn, dev, REPEAT),
+              kernel_seg_scan(q51_calls, conn, dev, REPEAT),
+              kernel_key_change(conn, dev, REPEAT),
+              kernel_window_frame(conn, dev, REPEAT)]
+    del q51_calls
+    torch_op_rows(conn, ds_conn, dev, REPEAT)
     torch.cuda.synchronize()
-    print("kernels hold against their plain versions", flush=True)
+    print(f"phase 3: kernels hold against their plain versions "
+          f"({time.perf_counter() - t_phase:.1f} s with the tables)",
+          flush=True)
 
     counters = [direct_agg, compact_indices, segment_reduce, hash_columns,
-                join_probe, join_expand]
+                join_probe, join_expand, segmented_scan, key_change_flags,
+                window_frame]
+    calls = CallCounter()
+    t0 = time.perf_counter()
     launches = main_path(conn, counters)
+    print(f"phase 4a: TPC-H main path in {time.perf_counter() - t0:.1f} s; "
+          f"launches {launches}; torch-op stage calls {calls.counts}",
+          flush=True)
+    calls.reset()
+    t0 = time.perf_counter()
+    breadth = breadth_path(ds_conn, conn, counters)
+    print(f"phase 4b: breadth path in {time.perf_counter() - t0:.1f} s; "
+          f"launches {breadth}; torch-op stage calls {calls.counts}",
+          flush=True)
     for r in report:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = launches[r["name"]] + breadth[r["name"]]
+    del ds_conn
+    t0 = time.perf_counter()
     sqlite_phase(counters)
+    print(f"phase 5: sqlite comparisons in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     print(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s",
           flush=True)
     keys = ("name", "route", "source", "replaces", "launches",

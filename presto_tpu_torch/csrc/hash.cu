@@ -11,7 +11,8 @@
 // its exact value. The float lane takes floor(log2|v|) with CUDA's log2,
 // which may differ from XLA's by an ulp at a power-of-two boundary: float
 // keys are promised only to hash equal when they are equal (NaN = NaN,
-// -0.0 = +0.0).
+// -0.0 = +0.0, subnormals = 0.0: a float64 subnormal is flushed to zero
+// first, as XLA's CPU code does in the JAX function).
 //
 // One thread per row, grid-stride; the lane descriptors (at most
 // MAX_LANES) are passed by value. Bound on an H100: memory. Each row reads
@@ -30,6 +31,8 @@ enum { DT_F64 = 0, DT_I64 = 1, DT_I32 = 2, DT_BOOL = 3, DT_F32 = 4 };
 
 static const uint64_t GOLDEN = 0x9E3779B97F4A7C15ull;
 static const uint64_t NULL_TAG = 0x5BD1E995ull;
+// the smallest normal float64; smaller magnitudes hash as zero
+#define F64_MIN_NORMAL 2.2250738585072014e-308
 
 struct Lanes {
   const void* values[MAX_LANES];
@@ -45,6 +48,7 @@ static __device__ __forceinline__ uint64_t mix64(uint64_t x) {
 }
 
 static __device__ __forceinline__ uint64_t f64_hash_lane(double v) {
+  if (fabs(v) < F64_MIN_NORMAL) v = 0.0;
   const bool is_nan = isnan(v);
   const bool is_inf = isinf(v);
   const double safe = (is_nan || is_inf) ? 1.0 : v;

@@ -11,7 +11,8 @@
 //
 // K5 join_probe: one thread per probe row (grid-stride) binary-searches
 // its window [lo, hi) of equal hashes and, by mode, walks it with an exact
-// key recheck (NaN = NaN, int32 codes against int64):
+// key recheck (NaN = NaN, float64 subnormals = 0.0 as in ops/keys.py's
+// values_equal, int32 codes against int64):
 //   WINDOW  lo and the window count only (the expansion join);
 //   FIRST   walk forward, stop at the first key match (semi/anti joins and
 //           the merge join's duplicate count);
@@ -40,6 +41,7 @@
 // written and read once (8 B/row each); each pair slot writes 17 B.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "block_scan.cuh"
@@ -54,6 +56,9 @@
 
 enum { DT_F64 = 0, DT_I64 = 1, DT_I32 = 2, DT_BOOL = 3, DT_F32 = 4 };
 enum { MODE_WINDOW = 0, MODE_FIRST = 1, MODE_LAST = 2, MODE_ALL = 3 };
+
+// the smallest normal float64; smaller magnitudes compare as zero
+#define F64_MIN_NORMAL 2.2250738585072014e-308
 
 struct KeyLanes {
   const void* probe[MAX_LANES];
@@ -78,9 +83,11 @@ static __device__ __forceinline__ int64_t load_int(const void* v, int dt,
 
 static __device__ __forceinline__ double load_f64(const void* v, int dt,
                                                   int64_t i) {
-  if (dt == DT_F64) return ((const double*)v)[i];
-  if (dt == DT_F32) return (double)((const float*)v)[i];
-  return (double)load_int(v, dt, i);
+  double x;
+  if (dt == DT_F64) x = ((const double*)v)[i];
+  else if (dt == DT_F32) x = (double)((const float*)v)[i];
+  else return (double)load_int(v, dt, i);
+  return fabs(x) < F64_MIN_NORMAL ? 0.0 : x;
 }
 
 // values_equal over every key lane: probe row pi against build row bi

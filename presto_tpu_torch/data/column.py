@@ -348,3 +348,25 @@ def compact(page: Page, keep: torch.Tensor) -> Page:
                          device=keep.device) < n
     cols = [c.gather(perm, valid) for c in page.columns]
     return Page(tuple(cols), n, page.names)
+
+
+def merge_string_dicts(dicts: Sequence[Optional[StringDict]]
+                       ) -> Tuple[StringDict, List[np.ndarray]]:
+    """Union N sorted dictionaries into one sorted dictionary; returns the
+    union and, per input dict, the code remap array (old code -> new
+    code), empty for a missing or empty dictionary
+    (presto_tpu/data/column.py:618). Host code: UnionAll of branches
+    whose string columns carry different dictionaries."""
+    word_lists = [list(d.words) if d is not None else [] for d in dicts]
+    union = sorted(set().union(*[set(w) for w in word_lists]))
+    union_arr = np.asarray(union, dtype=object).astype(str)
+    out = StringDict(union)
+    remaps = []
+    for words in word_lists:
+        if not words:
+            remaps.append(np.zeros(0, np.int32))
+            continue
+        remaps.append(np.searchsorted(
+            union_arr, np.asarray(words, dtype=object).astype(str)
+        ).astype(np.int32))
+    return out, remaps

@@ -13,6 +13,16 @@ node is evaluated eagerly in the same order and with the same operators:
   and falls back to the expansion ops/join.hash_join where the build side
   has duplicate keys (kernels K4, K5, K6 and K2);
 - AssignUniqueId appends a row id;
+- GroupId replicates its source once per grouping set, set-major, with
+  the keys outside each set nulled, and appends the set id;
+- MarkDistinct appends a first-occurrence flag (ops/mark_distinct.py,
+  kernel K8);
+- UnionAll concatenates its branches, remapping string codes into a
+  merged dictionary where the branches' dictionaries differ, and compacts
+  (K2); the merged dictionary and its remap tables are kept per tuple of
+  input dictionaries, so a warm run does no host merge;
+- Window appends one column per window function (ops/window.py, kernels
+  K7, K8 and K9);
 - Sort / TopN / Limit / Output as in ops/sort.py.
 
 Scalar subqueries (uncorrelated) are executed first and replaced by
@@ -25,11 +35,11 @@ duplicate counts and the checked-arithmetic error lane are read in ONE
 host sync at the end of the plan, and an overflow (or a duplicate build
 key under a merge join, watched under the negated node id) re-runs the
 plan at larger learned capacities (kept per plan for the executor's
-lifetime). Other node types (windows, unions, unnest, grouping sets,
-distinct marks, exchanges, writers, ...) raise NotImplementedError:
-later slices of the port. So do the three join cases the JAX executor
-does not implement either (a residual filter on a FULL join, a FULL join
-and a LEFT join with a residual filter whose build keys repeat).
+lifetime). Other node types (unnest, exchanges and remote sources,
+table writers) raise NotImplementedError: later slices of the port. So
+do the three join cases the JAX executor does not implement either (a
+residual filter on a FULL join, a FULL join and a LEFT join with a
+residual filter whose build keys repeat).
 """
 
 from __future__ import annotations
@@ -42,7 +52,8 @@ import numpy as np
 import torch
 
 from presto_tpu_torch.data.column import (
-    Column, Page, bucket_capacity, compact, resolve_device,
+    Column, Page, bucket_capacity, compact, merge_string_dicts,
+    resolve_device,
 )
 from presto_tpu_torch.expr import errors as E
 from presto_tpu_torch.expr.compile import compile_expr
@@ -50,11 +61,14 @@ from presto_tpu_torch.expr.nodes import Call, Literal, RowExpression, \
     SpecialForm
 from presto_tpu_torch.ops.aggregate import grouped_aggregate
 from presto_tpu_torch.ops.join import hash_join, merge_join
+from presto_tpu_torch.ops.mark_distinct import mark_distinct
 from presto_tpu_torch.ops.sort import limit_page, sort_page, top_n
+from presto_tpu_torch.ops.window import window_page
 from presto_tpu_torch.plan.nodes import (
-    AggregationNode, AssignUniqueIdNode, FilterNode, JoinNode, JoinType,
-    LimitNode, OutputNode, PlanNode, ProjectNode, SortNode, TableScanNode,
-    TopNNode, ValuesNode,
+    AggregationNode, AssignUniqueIdNode, FilterNode, GroupIdNode, JoinNode,
+    JoinType, LimitNode, MarkDistinctNode, OutputNode, PlanNode,
+    ProjectNode, SortNode, TableScanNode, TopNNode, UnionAllNode,
+    ValuesNode, WindowNode,
 )
 
 
@@ -73,6 +87,9 @@ class Executor:
         self.device = resolve_device(device)
         self._learned: Dict[PlanNode, Dict[int, int]] = {}
         self._deadline = None
+        # UnionAll: tuple of branch dictionaries -> (merged dictionary,
+        # per branch its code remap on the device, or None)
+        self._merged_dicts: Dict[tuple, tuple] = {}
 
     def execute(self, plan: PlanNode) -> Page:
         budget = self.session["query_max_execution_time"]
@@ -208,6 +225,18 @@ class Executor:
                              None)
                 return Page(p.columns + (col,), p.num_rows,
                             node.output_names)
+            if isinstance(node, GroupIdNode):
+                return run_group_id(node)
+            if isinstance(node, MarkDistinctNode):
+                out = mark_distinct(run(node.source), node.key_fields,
+                                    node.output_names[-1])
+                return Page(out.columns, out.num_rows, node.output_names)
+            if isinstance(node, UnionAllNode):
+                return run_union(node)
+            if isinstance(node, WindowNode):
+                out = window_page(run(node.source), node.partition_fields,
+                                  node.order_keys, node.specs)
+                return Page(out.columns, out.num_rows, node.output_names)
             if isinstance(node, SortNode):
                 return sort_page(run(node.source), node.keys)
             if isinstance(node, TopNNode):
@@ -219,6 +248,79 @@ class Executor:
                 return Page(p.columns, p.num_rows, node.output_names)
             raise NotImplementedError(
                 f"lowering {type(node).__name__}: later slice of the port")
+
+        def run_group_id(node: GroupIdNode) -> Page:
+            # presto_tpu/exec/executor.py:1032-1074: set-major layout over
+            # the source's row count, set s in rows [s*n, (s+1)*n)
+            p = run(node.source)
+            nsets = len(node.grouping_sets)
+            member = torch.ones((nsets, node.arity - 1), dtype=torch.bool)
+            for si, keep in enumerate(node.grouping_sets):
+                for c in node.key_fields:
+                    member[si, c] = c in keep
+            member = member.to(dev)
+            n = p.num_rows
+            r = torch.arange(nsets * p.capacity, dtype=torch.int64,
+                             device=dev)
+            n1 = n.clamp(min=1)
+            set_id = torch.clamp(r // n1, 0, nsets - 1)
+            srci = (r - set_id * n1).clamp(0, p.capacity - 1)
+            valid = r < nsets * n
+            cols = []
+            for ci, c in enumerate(p.columns):
+                keep = member[:, ci][set_id] & valid
+                sent = torch.tensor(c.type.null_sentinel(),
+                                    dtype=c.values.dtype, device=dev)
+                cols.append(Column(torch.where(keep, c.values[srci], sent),
+                                   torch.where(keep, c.nulls[srci], True),
+                                   c.type, c.dictionary))
+            gt = node.output_types[-1]
+            gid = Column(torch.where(valid, set_id, torch.tensor(
+                gt.null_sentinel(), dtype=torch.int64, device=dev)),
+                ~valid, gt, None)
+            return Page(tuple(cols) + (gid,), nsets * n, node.output_names)
+
+        def merged_dict(dicts: tuple):
+            """The merged dictionary of a union's branches and each
+            branch's code remap on the device (None: codes kept), built
+            once per tuple of branch dictionaries."""
+            got = self._merged_dicts.get(dicts)
+            if got is None:
+                union_d, remaps = merge_string_dicts(dicts)
+                got = (union_d, [
+                    torch.from_numpy(r).to(dev) if len(r) else None
+                    for r in remaps])
+                self._merged_dicts[dicts] = got
+            return got
+
+        def run_union(node: UnionAllNode) -> Page:
+            # presto_tpu/exec/executor.py:1112-1151
+            ps = [run(s) for s in node.sources]
+            out_cap = sum(p.capacity for p in ps)
+            cols = []
+            for ci, t in enumerate(node.output_types):
+                branch = [p.columns[ci] for p in ps]
+                d0 = branch[0].dictionary
+                if t.is_string and any(c.dictionary is not d0
+                                       for c in branch):
+                    d0, remaps = merged_dict(
+                        tuple(c.dictionary for c in branch))
+                    # codes remapped as the JAX take(mode="clip") does
+                    vals = torch.cat([
+                        r[c.values.long().clamp(0, r.shape[0] - 1)]
+                        if r is not None else c.values
+                        for c, r in zip(branch, remaps)])
+                else:
+                    vals = torch.cat([c.values for c in branch])
+                nulls = torch.cat([c.nulls for c in branch])
+                cols.append(Column(vals, nulls, t, d0))
+            # each branch's valid rows sit at its own capacity offset:
+            # declare everything in range, then compact
+            keep = torch.cat([p.row_valid() for p in ps])
+            out = Page(tuple(cols), torch.tensor(out_cap, dtype=torch.int64,
+                                                 device=dev),
+                       node.output_names)
+            return compact(out, keep)
 
         def run_aggregation(node: AggregationNode, nid: int) -> Page:
             # Fuse the Filter/Project chain below the aggregation into it:

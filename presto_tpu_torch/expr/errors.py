@@ -31,6 +31,8 @@ OVF_ABS = 32
 OVF_SUM = 64
 OVF_CAST = 128
 OVF_DECIMAL = 256
+#: a DECIMAL(19..38) value that does not fit the int64 the port holds it in
+WIDE_BEYOND_INT64 = 512
 
 MESSAGES = {
     OVF_ADD: "bigint addition overflow",
@@ -108,6 +110,10 @@ def raise_for_mask(mask: int) -> None:
     mask = int(mask)
     if not mask:
         return
+    if mask & WIDE_BEYOND_INT64:
+        raise NotImplementedError(
+            "a DECIMAL(19..38) value beyond 64 bits: the port holds such "
+            "values in int64 until DECIMAL(38) (data/int128.py) is ported")
     for code, msg in MESSAGES.items():
         if mask & code:
             raise ArithmeticOverflowError(msg)

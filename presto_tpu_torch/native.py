@@ -45,6 +45,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                        _P, _P, _P, _P, _P],
         "join_expand": [_P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _I32,
                         _I64, _P, _P, _P, _P, _P, _P, _P]},
+    "seg_scan": {
+        "segmented_scan": [_P, _I32, _I32, _I32, _P, _I64, _P, _P, _P, _P]},
+    "keys": {
+        "key_change": [_P, _I64, _P, _P, _P, _I32, _P, _P, _P, _I32, _I32,
+                       _I32, _P, _P, _P]},
+    "window": {"window_frame": [_P, _P, _P, _I64, _P]},
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

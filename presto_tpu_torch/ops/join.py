@@ -37,8 +37,8 @@ import torch
 from presto_tpu_torch.data.column import Column, Page, compact, \
     compact_indices
 from presto_tpu_torch.expr.compile import align_string_columns
-from presto_tpu_torch.ops.keys import hash_columns, lane_arrays, \
-    values_equal
+from presto_tpu_torch.ops.keys import group_values_lane, hash_columns, \
+    lane_arrays, values_equal
 from presto_tpu_torch.types import BOOLEAN
 
 #: join_probe modes: window bounds only; plus the first key match (walking
@@ -70,19 +70,13 @@ def _any_null(cols: Sequence[Column], cap: int, dev) -> torch.Tensor:
     return out
 
 
-def _group_lane(v: torch.Tensor) -> torch.Tensor:
-    """ops/keys.group_values of a key lane: float64 or int64."""
-    if v.is_floating_point():
-        return v.to(torch.float64)
-    return v.to(torch.int64)
-
-
 def _keys_equal_plain(pvals, bvals, pi, bi) -> torch.Tensor:
     """values_equal over every key lane, probe rows pi against build rows
     bi (so int32 codes meet int64 and NaN meets NaN)."""
     eq = torch.ones(pi.shape[0], dtype=torch.bool, device=pi.device)
     for pv, bv in zip(pvals, bvals):
-        eq &= values_equal(_group_lane(pv)[pi], _group_lane(bv)[bi])
+        eq &= values_equal(group_values_lane(pv)[pi],
+                           group_values_lane(bv)[bi])
     return eq
 
 

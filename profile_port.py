@@ -4,10 +4,13 @@
     python3 profile_port.py [--out profile.json]
 
 Runs chip_smoke.py's main-path queries (`main_queries()`: TPC-H q01, q06, the
-q18 aggregation block, q03, q04, q13, q18, q21 and q22 at SF1) through
-presto_tpu_torch's LocalEngine on the card: once cold (column uploads,
-capacity retries), WARM times warm and timed, once warm under
-torch.profiler. Prints per query the median warm wall time,
+q18 aggregation block, q03, q04, q13, q18, q21 and q22 at SF1) and the
+breadth path's TPC-DS q51, q67 and q75 at SF1 and TPC-H running-window
+query at SF1 (`breadth_queries()`; that one returns 1.5M rows and is
+timed to its result page on the card, without the conversion to Python
+rows) through presto_tpu_torch's LocalEngine on the card: once cold
+(column uploads, capacity retries), WARM times warm and timed, once warm
+under torch.profiler. Prints per query the median warm wall time,
 the device busy time (the union of kernel and copy intervals in the
 trace) beside the traced run's wall time, and the device time of the
 heaviest kernels; with --out, writes the same as JSON, with the device
@@ -23,10 +26,12 @@ import statistics
 import sys
 import time
 
-from chip_smoke import SF, card_line, main_queries
+from chip_smoke import SF, TPCDS_SF, breadth_queries, card_line, \
+    main_queries, run_query
 
 TOP = 8        # heaviest device kernels listed per query
 WARM = 7       # timed warm runs per query (median reported)
+BREADTH = ("ds51", "ds67", "ds75", "h_running_sum")
 
 
 def _busy_us(intervals) -> float:
@@ -44,21 +49,21 @@ def _busy_us(intervals) -> float:
     return total
 
 
-def profile_query(engine, sql: str) -> dict:
+def profile_query(engine, sql: str, as_page: bool = False) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    engine.execute_sql(sql)                      # cold
+    run_query(engine, sql, as_page)              # cold
     walls = []
     for _ in range(WARM):                        # warm, timed
         torch.cuda.synchronize()
         t = time.perf_counter()
-        engine.execute_sql(sql)
+        run_query(engine, sql, as_page)
         walls.append((time.perf_counter() - t) * 1e3)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        engine.execute_sql(sql)
+        run_query(engine, sql, as_page)
         traced_ms = (time.perf_counter() - t) * 1e3
     intervals, by_name = [], {}
     for ev in prof.events():
@@ -88,14 +93,20 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
         return 2
-    from presto_tpu_torch.connectors import TpchConnector
+    from presto_tpu_torch.connectors import TpcdsConnector, TpchConnector
     from presto_tpu_torch.exec.engine import LocalEngine
 
     card = card_line()
     engine = LocalEngine(TpchConnector(SF))
-    result = {"card": card, "sf": SF, "queries": {}}
-    for name, (sql, _ordered) in main_queries().items():
-        r = profile_query(engine, sql)
+    ds_engine = LocalEngine(TpcdsConnector(TPCDS_SF))
+    result = {"card": card, "sf": SF, "tpcds_sf": TPCDS_SF, "queries": {}}
+    runs = [(name, engine, sql, False)
+            for name, (sql, _ordered) in main_queries().items()]
+    breadth = breadth_queries(ds_engine, engine)
+    runs += [(name, breadth[name][0], breadth[name][1], breadth[name][3])
+             for name in BREADTH]
+    for name, eng, sql, as_page in runs:
+        r = profile_query(eng, sql, as_page)
         result["queries"][name] = r
         print(f"{name}: warm wall median {r['wall_ms']:.2f} ms (min "
               f"{min(r['wall_ms_all']):.2f}), device busy "

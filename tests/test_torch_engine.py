@@ -146,12 +146,12 @@ def test_checked_arithmetic_matches_jax(engines, case):
 
 
 def test_join_raises_not_implemented(engines):
-    """Joins run since the second slice; a node type still unported (a
-    WindowNode here) raises NotImplementedError naming a later slice."""
+    """Joins run since the second slice and windows since the third; a
+    part still unported (approx_distinct's HyperLogLog here) raises
+    NotImplementedError naming a later slice."""
     _ref, port = engines
     with pytest.raises(NotImplementedError, match="later slice"):
-        port.execute_sql("select n_name, row_number() over (partition by "
-                         "n_regionkey order by n_name) from nation")
+        port.execute_sql("select approx_distinct(n_name) from nation")
 
 
 def test_engine_needs_a_card_unless_given_the_cpu(monkeypatch):

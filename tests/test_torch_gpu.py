@@ -9,9 +9,10 @@ CUDA device is present. On a machine with a card:
 (--noconftest: tests/conftest.py pins JAX to the CPU, and the card's
 machine has no JAX; this file imports none.)
 
-Tolerances: counts, indices, hashes, join pairs and flags, int64 sums,
-min and max exact; float64 sums within 1e-9 relative (the kernels sum in
-another order than the plain versions).
+Tolerances: counts, indices, hashes, join pairs and flags, scans other
+than float64 sums, window outputs other than float64 sums and averages,
+int64 sums, min and max exact; float64 sums within 1e-9 relative (the
+kernels sum in another order than the plain versions).
 """
 
 import numpy as np
@@ -24,6 +25,7 @@ from presto_tpu_torch.ops import aggregate as A
 from presto_tpu_torch.ops import join as J
 from presto_tpu_torch.ops import keys as K
 from presto_tpu_torch.ops import scan as S
+from presto_tpu_torch.ops import window as W
 
 pytestmark = pytest.mark.gpu
 
@@ -215,6 +217,152 @@ def test_join_expand_kernel_matches_plain(cuda, out_cap, left):
         _same(g, p)
 
 
+def test_subnormal_keys_hash_and_probe_as_zero(cuda):
+    v = np.array([1e-310, -1e-310, 0.0, -0.0, 2.5, 1e-300])
+    col = C.Column.from_numpy(v, T.DOUBLE, device="cpu")
+    h = K.hash_columns([_on(col, cuda)])
+    _same(h, K.hash_columns([col]))
+    assert len(set(h[:4].tolist())) == 1 and h[5] != h[0]
+    ph = h[:4]
+    bh_sorted, order = torch.sort(h[2:3], stable=True)
+    _, _, hit, _ = J.join_probe(ph, bh_sorted, order,
+                                [col.values[:4].to(cuda)],
+                                [col.values[2:3].to(cuda)], J.FIRST)
+    assert hit.tolist() == [0, 0, 0, 0]
+
+
+@pytest.mark.parametrize("n", [1, 2049, 1_000_003])
+@pytest.mark.parametrize("op,dtype", [
+    ("add", torch.float64), ("add", torch.int64), ("add", torch.int32),
+    ("min", torch.float64), ("max", torch.float64), ("min", torch.int64),
+    ("max", torch.int32), ("last", torch.bool)])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("segmented", [False, True])
+def test_segmented_scan_kernel_matches_plain(cuda, n, op, dtype, reverse,
+                                             segmented):
+    rng = np.random.default_rng(n + 7)
+    if dtype == torch.bool:
+        x = torch.from_numpy(rng.random(n) < 0.01)
+    elif dtype == torch.float64:
+        v = rng.normal(0, 100, n)
+        v[rng.integers(0, n, min(n, 9))] = np.nan if op != "add" else 1.0
+        v[rng.integers(0, n, min(n, 9))] = np.inf
+        x = torch.from_numpy(v)
+    else:
+        x = torch.from_numpy(rng.integers(-2 ** 20, 2 ** 20, n)).to(dtype)
+        x[::1001] = torch.iinfo(dtype).max
+    seg = None
+    if segmented:
+        f = rng.random(n) < 0.02
+        f[::2048] = True
+        seg = torch.from_numpy(f)
+    plain = S.segmented_scan(x, op, reverse, seg)
+    before = S.segmented_scan.launches
+    got = S.segmented_scan(x.to(cuda), op, reverse,
+                           seg.to(cuda) if seg is not None else None)
+    assert S.segmented_scan.launches == before + 1
+    if op == "add" and dtype == torch.float64:
+        _close(got, plain)
+    else:
+        _same(got, plain)
+
+
+@pytest.mark.parametrize("mode", [K.WINDOW_FLAGS, K.FIRST_FLAGS])
+def test_key_change_kernel_matches_plain(cuda, mode):
+    rng = np.random.default_rng(53)
+    n = 300_001
+    cols = _key_columns(rng, n)
+    cols[4].values[7:11] = torch.tensor([1e-310, 0.0, -1e-310, -0.0],
+                                        dtype=torch.float64)
+    cap = cols[0].capacity
+    perm = torch.from_numpy(rng.permutation(cap))
+    keys = [(c.nulls, [c.values]) for c in cols[:3]] + \
+        [(None, [cols[4].values, cols[3].values, cols[5].values])]
+    num_rows = torch.tensor(n - 1000)
+    plain = K.key_change_flags(perm, keys, num_rows, 2, mode)
+    before = K.key_change_flags.launches
+    got = K.key_change_flags(perm.to(cuda),
+                             [(nl.to(cuda) if nl is not None else None,
+                               [v.to(cuda) for v in vs])
+                              for nl, vs in keys], num_rows.to(cuda), 2,
+                             mode)
+    assert K.key_change_flags.launches == before + 1
+    _same(got[0], plain[0])
+    if mode == K.WINDOW_FLAGS:
+        _same(got[1], plain[1])
+    else:
+        assert got[1] is None
+
+
+def _window_page(rng, n, cap):
+    o = rng.integers(0, 50, n).astype(np.float64)
+    o[::501] = np.nan
+    specs = [(T.BIGINT, rng.integers(0, 40, n)),
+             (T.DOUBLE, o),
+             (T.DOUBLE, rng.normal(0, 100, n)),
+             (T.BIGINT, rng.integers(-500, 500, n)),
+             (T.VARCHAR, rng.integers(0, 7, n).astype(np.int32))]
+    cols = [C.Column.from_numpy(v, t, nulls=rng.random(n) < 0.05,
+                                dictionary=(C.StringDict(list("abcdefg"))
+                                            if t == T.VARCHAR else None),
+                                capacity=cap, device="cpu")
+            for t, v in specs]
+    return C.Page.from_columns(cols, n, device="cpu")
+
+
+WINDOW_SPECS = [
+    W.WindowSpec("row_number", None, T.BIGINT),
+    W.WindowSpec("rank", None, T.BIGINT),
+    W.WindowSpec("dense_rank", None, T.BIGINT),
+    W.WindowSpec("ntile", None, T.BIGINT, 4),
+    W.WindowSpec("lag", 3, T.BIGINT, 2, -1),
+    W.WindowSpec("lead", 4, T.VARCHAR, 1),
+    W.WindowSpec("first_value", 2, T.DOUBLE),
+    W.WindowSpec("nth_value", 3, T.BIGINT, 3,
+                 frame=W.Frame("rows", "preceding", 2, "following", 2)),
+    W.WindowSpec("sum", 2, T.DOUBLE),
+    W.WindowSpec("sum", 3, T.BIGINT,
+                 frame=W.Frame("rows", "preceding", 3, "preceding", 1)),
+    W.WindowSpec("count", 2, T.BIGINT,
+                 frame=W.Frame("range", "current", None,
+                               "unbounded_following", None)),
+    W.WindowSpec("count_star", None, T.BIGINT),
+    W.WindowSpec("avg", 2, T.DOUBLE,
+                 frame=W.Frame("rows", "current", None, "following", 5)),
+    W.WindowSpec("max", 2, T.DOUBLE),
+    W.WindowSpec("min", 4, T.VARCHAR,
+                 frame=W.Frame("rows", "current", None,
+                               "unbounded_following", None)),
+    W.WindowSpec("min", 2, T.DOUBLE,
+                 frame=W.Frame("rows", "preceding", 3, "following", 3)),
+    W.WindowSpec("max", 3, T.BIGINT,
+                 frame=W.Frame("rows", "following", 1, "following", 4)),
+]
+
+
+@pytest.mark.parametrize("cap,n", [(4096, 3001), (1 << 20, 1_000_003)])
+def test_window_page_on_the_card_matches_the_cpu(cuda, cap, n):
+    """K7, K8 and K9 together (window_page's every launch on the card)
+    against the plain versions on the CPU, spec by spec."""
+    rng = np.random.default_rng(cap)
+    page = _window_page(rng, n, cap)
+    on = C.Page(tuple(_on(c, cuda) for c in page.columns),
+                page.num_rows.to(cuda), page.names)
+    keys = [K.SortKey(1), K.SortKey(3, ascending=False, nulls_first=True)]
+    plain = W.window_page(page, (0,), keys, WINDOW_SPECS)
+    before = W.window_frame.launches
+    got = W.window_page(on, (0,), keys, WINDOW_SPECS)
+    assert W.window_frame.launches == before + len(WINDOW_SPECS)
+    base = len(page.columns)
+    for i, spec in enumerate(WINDOW_SPECS):
+        g, p = got.columns[base + i], plain.columns[base + i]
+        _same(g.nulls, p.nulls)
+        if spec.kind in ("sum", "avg") and spec.output_type == T.DOUBLE:
+            _close(g.values, p.values)
+        else:
+            _same(g.values, p.values)
+
+
 def test_wrappers_refuse_mixed_devices(cuda):
     with pytest.raises(ValueError):
         S.segment_reduce(torch.zeros(4, dtype=torch.float64, device=cuda),
@@ -249,10 +397,19 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
         ("select o_orderpriority, count(*) from orders where exists "
          "(select * from lineitem where l_orderkey = o_orderkey and "
          "l_commitdate < l_receiptdate) group by o_orderpriority", False),
+        ("select o_custkey, o_orderkey, sum(o_totalprice) over (partition "
+         "by o_custkey order by o_orderdate) from orders", False),
+        ("select l_returnflag, l_linestatus, count(*) from lineitem "
+         "group by rollup(l_returnflag, l_linestatus)", False),
+        ("select l_returnflag, count(*), count(distinct l_suppkey) "
+         "from lineitem group by 1", False),
+        ("select n_name from nation union all select r_name from region",
+         False),
     ]:
         a, b = gpu.execute_sql(sql), cpu.execute_sql(sql)
         if not ordered:
-            a, b = sorted(a), sorted(b)
+            key = lambda r: tuple((v is None, v) for v in r)  # noqa: E731
+            a, b = sorted(a, key=key), sorted(b, key=key)
         assert len(a) == len(b) and a
         for ra, rb in zip(a, b):
             for x, y in zip(ra, rb):

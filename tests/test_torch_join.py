@@ -328,3 +328,39 @@ def test_join_expand_plain_layout():
     assert bidx.tolist() == [0, 1, 3, 1, 2, 4, 0, 0]
     assert bvalid.tolist() == [True, True, False, False, True, True,
                                False, False]
+
+
+# ---------------------------------------------------------------------------
+# subnormal float keys
+# ---------------------------------------------------------------------------
+
+def _subnormal_sides():
+    """Probe and build double keys of +-1e-310 (subnormal), +-0.0 and a
+    few normal values, each build key once (merge joins need unique build
+    keys up to key equality, so the build side holds one zero class)."""
+    pk = np.array([1e-310, -1e-310, 0.0, -0.0, 1.5, 2.5, 1e-310, -2.0])
+    bk = np.array([-1e-310, 1.5, 3.0, -2.0])
+    probe = [("double", pk, np.zeros(8, bool), None),
+             ("bigint", np.arange(8), np.zeros(8, bool), None)]
+    build = [("double", bk, np.zeros(4, bool), None),
+             ("bigint", np.arange(100, 104), np.zeros(4, bool), None)]
+    rp, pp = _pages(probe, 8, cap=256)
+    rb, pb = _pages(build, 4, cap=256)
+    return rp, pp, rb, pb
+
+
+@pytest.mark.parametrize("jt", ["inner", "left", "full", "semi", "anti"])
+def test_subnormal_keys_join_like_jax(jt):
+    """The JAX key functions flush float64 subnormals to zero on the CPU,
+    so 1e-310, -1e-310, 0.0 and -0.0 are one key; the port's hash, its
+    equality and both joins agree page for page."""
+    rp, pp, rb, pb = _subnormal_sides()
+    out, _ = _merge_both(rp, pp, rb, pb, (0,), (0,), jt)
+    if jt == "inner":
+        # five zero-class probe rows meet the -1e-310 build row; 1.5
+        # and -2.0 match too
+        assert int(out.num_rows) == 7
+    if jt in ("inner", "left"):
+        _hash_both(rp, pp, rb, pb, (0,), (0,), 1024, jt)
+    h = PK.hash_columns([pp.columns[0]]).numpy()
+    assert h[0] == h[1] == h[2] == h[3] == h[6]
