@@ -10,13 +10,19 @@ Phases, each fatal on failure, each printing its seconds:
   3. generate the TPC-H SF1 and TPC-DS SF1 tables on the host; each
      kernel (K1 direct_agg, K2 compact_indices, K3 segment_reduce, K4
      hash_columns, K5 join_probe, K6 join_expand, K7 segmented_scan, K8
-     key_change_flags, K9 window_frame) at the shapes SF1 gives it on the
-     main path (K1-K3 on seeded numpy data; K4-K6 on q13's join of
-     customer with orders; K7 on TPC-DS q51's largest window input and on
-     orders partitioned by o_custkey; K8 and K9 on that orders page), held
+     key_change_flags, K9 window_frame, K10 int128_op, and the 128-bit sum
+     modes of K1 and K3) at the shapes SF1 gives it on the main path
+     (K1-K3 on seeded numpy data; K4-K6 on q13's join of customer with
+     orders; K7 on TPC-DS q51's largest window input and on orders
+     partitioned by o_custkey; K8 and K9 on that orders page; K10 and the
+     128-bit modes on seeded values over the full +-(10^38-1) range with
+     rows of 2 x 9.9e37, at q01's and the q18 block's shapes), held
      against its plain PyTorch version on the card (counts, indices,
-     hashes, join pairs, flags, positions, min and max exact; float64 sums
-     within 1e-9 relative, since the kernels sum in another order), and
+     hashes, join pairs, flags, positions, min and max, limb sums and
+     128-bit results and overflow flags exact; float64 sums within 1e-9
+     relative, since the kernels sum in another order; K10's cast to
+     double within 1e-15, since torch divides by a scalar through its
+     reciprocal), and
      timed with CUDA events beside the plain version, one PyTorch library
      call where one computes the same function, and the card's bound; K5's
      merge-path modes, K7's other scans and K9's other window functions
@@ -35,6 +41,14 @@ Phases, each fatal on failure, each printing its seconds:
         windows and a distinct mark, each cold and warm on the card, the
         warm rows held against the cold ones and against the engine on
         the CPU; K7-K9 must have been launched here;
+     c. the decimal path: TPC-H q01, q03, q06, q10 and q19 over SF1
+        lineitem with its four money columns typed DECIMAL(12,2), as the
+        spec types them (a MemoryConnector table over the generator's
+        arrays, falling back to TpchConnector(1.0)), each cold and warm on
+        the card; the rows held exactly (Decimal for Decimal) against the
+        cold run, the engine on the CPU and, for q01 and q06, numpy int64
+        arithmetic; K10 and the 128-bit modes of K1 and K3 must have been
+        launched here;
   5. all 22 TPC-H queries at SF 0.01 and all 99 TPC-DS queries at SF
      0.002 on the card, cold and warm, and the window and grouping-set
      queries of tests/test_window_outer.py and tests/test_grouping_sets.py
@@ -44,8 +58,8 @@ Phases, each fatal on failure, each printing its seconds:
 
 The JSON kernel report is printed two lines before the end, then the
 card's name and power limit, then {"ok": true, "device": {...}} as the
-last line; each kernel's `launches` there is its count over the two main
-paths of phase 4. Imports nothing of JAX or presto_tpu: the query lists
+last line; each kernel's `launches` there is its count over the three
+main paths of phase 4. Imports nothing of JAX or presto_tpu: the query lists
 of the test files are read from their source with `ast`.
 """
 
@@ -138,6 +152,11 @@ SQLITE_SF = 0.01                   # scale factor of the sqlite phase
 TPCDS_SF = 1.0                     # TPC-DS scale factor of the breadth path
 TPCDS_SQLITE_SF = 0.002            # TPC-DS scale factor of the sqlite phase
 TPCDS_MAIN = (47, 51, 67, 70, 16, 75, 97)
+#: TPC-H queries of the decimal path, over lineitem with DECIMAL(12,2)
+#: money columns
+DECIMAL_MAIN = (1, 3, 6, 10, 19)
+RTOL_F64 = 1e-15                   # K10's to_double: torch divides by a
+                                   # scalar through its reciprocal
 
 #: TPC-H SF1 queries of the breadth path: name -> (SQL, page compared
 #: column by column instead of as Python rows: millions of output rows)
@@ -165,6 +184,24 @@ def main_queries() -> dict:
         ("q01", tpch[1]), ("q06", tpch[6]), ("q18_block", Q18_BLOCK),
         ("q03", tpch[3]), ("q04", tpch[4]), ("q13", tpch[13]),
         ("q18", tpch[18]), ("q21", tpch[21]), ("q22", tpch[22])]}
+
+
+def decimal_queries() -> dict:
+    """The decimal path's queries: name -> (SQL, whether its rows come in
+    a defined order)."""
+    tpch = tpch_queries()
+    return {f"q{q:02d}": (tpch[q], "order by" in tpch[q].lower())
+            for q in DECIMAL_MAIN}
+
+
+def decimal_connector(conn):
+    """A MemoryConnector serving lineitem with DECIMAL(12,2) money
+    columns, every other table from `conn` (a TpchConnector)."""
+    from presto_tpu_torch.connectors import MemoryConnector
+    from presto_tpu_torch.connectors.tpch import decimal_lineitem
+    mem = MemoryConnector(fallback=conn)
+    mem.register(decimal_lineitem(conn.scale_factor))
+    return mem
 
 
 def fail(msg: str) -> None:
@@ -397,6 +434,217 @@ def kernel_segment_reduce(rng, dev, repeat):
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
             "library_ms": cuda_time_ms(library, repeat)}
+
+
+def _wide_values(rng, n, dev, live_rows=None):
+    """Four int64 limb lanes of n values over +-(10^38-1): per row the
+    magnitude keeps 1 to 4 of its limbs (random 32-bit limbs, the top one
+    below 1,262,177,448 so that |v| < 10^38 about), half of them negated
+    lane by lane (a valid, denormalized form). The last three of the first
+    `live_rows` rows (default n) hold 2 x 9.9e37, -2 x 9.9e37 and
+    2 x 9.9e37 in doubled lanes: values past 2^127."""
+    m = [rng.integers(0, 2 ** 32, n) for _ in range(3)]
+    m.insert(0, rng.integers(0, 1_262_177_448, n))
+    keep = rng.integers(1, 5, n)
+    for q in range(3):
+        m[q] = np.where(keep > 3 - q, m[q], 0)
+    neg = rng.random(n) < 0.5
+    lanes = [np.where(neg, -x, x).astype(np.int64) for x in m]
+    big = 99 * 10 ** 36
+    end = n if live_rows is None else live_rows
+    for i, v in ((end - 3, big), (end - 2, -big), (end - 1, big)):
+        for q, shift in enumerate((96, 64, 32, 0)):
+            part = v >> shift if q == 0 else (v >> shift) & 0xFFFFFFFF
+            lanes[q][i] = 2 * part
+    return tuple(torch_from(x, dev) for x in lanes)
+
+
+def torch_from(a, dev):
+    import torch
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def _same_lanes(k, p, what):
+    """Two sets of limb lanes hold the same values (lanes normalized)."""
+    import torch
+    from presto_tpu_torch.data import int128 as I
+    for a, b in zip(I.normalize(k), I.normalize(p)):
+        if not torch.equal(a, b):
+            fail(f"{what}: limb lanes differ from the plain version")
+
+
+def kernel_int128(rng, dev, repeat):
+    """K10 at q01's SF1 shape (8,388,608 rows): every operation on values
+    over the full +-(10^38-1) range and the 2 x 9.9e37 rows, flags and
+    results against the plain version; timed on q01's sum_charge product
+    (DECIMAL(25,4) lanes x DECIMAL(13,2) int64 -> DECIMAL(38,6))."""
+    import torch
+    from presto_tpu_torch.data import int128 as I
+    cap = 8_388_608
+    wide_a, wide_b = _wide_values(rng, cap, dev), _wide_values(rng, cap, dev)
+    narrow = torch_from(rng.integers(-2 ** 62, 2 ** 62, cap), dev)
+    short = I.from_int64(torch_from(rng.integers(-10 ** 18, 10 ** 18, cap),
+                                    dev))
+    valid = torch_from(rng.random(cap) < 0.9, dev)
+    zero = torch_from(rng.random(cap) < 0.01, dev)
+    cases = [("multiply", wide_a, narrow, 0, 0),
+             ("multiply", narrow, narrow.flip(0), 0, 0),
+             ("multiply", wide_a, tuple(short), 0, 0),
+             ("add", wide_a, wide_b, 0, 3), ("subtract", wide_a, narrow, 2, 0),
+             ("rescale", wide_a, None, 5, 0), ("rescale", wide_a, None, -7, 0),
+             ("rescale", narrow, None, -20, 0),
+             ("compare", wide_a, wide_b, 1, 0), ("negate", wide_a, None, 0, 0),
+             ("abs", wide_b, None, 0, 0), ("to_double", wide_a, None, 0, 0),
+             ("to_int64", wide_a, None, -25, 0)]
+    for op, x, y, xs, ys in cases:
+        kw = dict(x_shift=xs, y_shift=ys, valid=valid, zero=zero, scale=6,
+                  lo=-2 ** 40, hi=2 ** 40, row_flags=True)
+        k_out, k_err, k_rows = I.int128_op(op, x, y, **kw)
+        p_out, p_err, p_rows = I._int128_op_plain(
+            op, x, y, xs, ys, valid, zero, 6, -2 ** 40, 2 ** 40, True)
+        what = f"int128_op {op} (shifts {xs}, {ys})"
+        if not (exact(k_rows, p_rows) and exact(k_err, p_err)):
+            fail(f"{what}: overflow flags differ from the plain version")
+        ok = p_rows == 0
+        if isinstance(p_out, tuple):
+            _same_lanes(tuple(t[ok] for t in k_out),
+                        tuple(t[ok] for t in p_out), what)
+        elif op == "to_double":
+            print(f"int128_op to_double: max abs difference "
+                  f"{close(k_out, p_out, RTOL_F64)} over values up to "
+                  f"{float(p_out.abs().max()):.3g} ({RTOL_F64} relative "
+                  f"allowed)", flush=True)
+        elif not exact(k_out[ok], p_out[ok]):
+            fail(f"{what}: results differ from the plain version")
+    # the carry rows: 2 x 9.9e37 in, exact out
+    back, _e = I.int128_op("rescale", wide_a, x_shift=0)
+    host = [t[-3:].cpu().numpy() for t in back]
+    if [I.to_python_int(host, i) for i in range(3)] != \
+            [198 * 10 ** 36, -198 * 10 ** 36, 198 * 10 ** 36]:
+        fail("int128_op lost the 2 x 9.9e37 rows")
+    # q01's operands: cents x (100 - discount), then x (100 + tax)
+    prod = I.int128_op(
+        "multiply", torch_from(rng.integers(90_000, 10 ** 7, cap), dev),
+        torch_from(rng.integers(90, 101, cap), dev))[0]
+    tax = torch_from(rng.integers(100, 109, cap), dev)
+    nulls = torch.zeros(cap, dtype=torch.bool, device=dev)
+
+    def kernel():
+        return I.int128_op("multiply", prod, tax, valid=valid, zero=nulls)
+
+    def plain():
+        return I._int128_op_plain("multiply", prod, tax, 0, 0, valid,
+                                  nulls, 0, 0, 0, False)
+
+    # four lanes and one int64 read, the valid and zero flags, four lanes
+    # written
+    nbytes = cap * (32 + 8 + 1 + 1 + 32)
+    return {"name": "int128_op", "route": "cuda",
+            "source": "presto_tpu_torch/csrc/int128.cu",
+            "replaces": "presto_tpu/data/int128.py:73",
+            # the timed multiply and every integer result are exact
+            "max_abs_err": 0.0,
+            "ms": cuda_time_ms(kernel, repeat),
+            "plain_ms": cuda_time_ms(plain, max(repeat // 4, 2)),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            # torch has no 128-bit integer type
+            "library_ms": None}
+
+
+def kernel_direct_agg_sum128(rng, dev, repeat):
+    """K1's 128-bit sum mode at q01's spec-typed SF1 shape: 6.0M rows in
+    an 8M-row page, two dictionary keys, the fused filter mask; l_quantity
+    and l_extendedprice as int64 cents (sum and the avg128 limb sums),
+    l_discount (limb sums), the two products as limb lanes (full range,
+    with the 2 x 9.9e37 rows)."""
+    import torch
+    from presto_tpu_torch.ops import aggregate as A
+    cap, n = 8_388_608, 6_001_215
+    keys = [(torch_from(rng.integers(0, k, cap).astype(np.int32), dev),
+             torch.zeros(cap, dtype=torch.bool, device=dev)) for k in (3, 2)]
+    mask = torch_from(rng.random(cap) < 0.986, dev)
+    mask[n - 3:n] = True
+    nulls = torch.zeros(cap, dtype=torch.bool, device=dev)
+    both = A.WANT_SUM | A.WANT_SUM128
+    inputs = [(torch_from(rng.integers(100, 5001, cap), dev), nulls, both),
+              (torch_from(rng.integers(90_000, 10 ** 7, cap), dev), nulls,
+               both),
+              (torch_from(rng.integers(0, 11, cap), dev), nulls,
+               A.WANT_SUM128),
+              (_wide_values(rng, cap, dev, n), nulls, A.WANT_SUM128),
+              (_wide_values(rng, cap, dev, n), nulls, A.WANT_SUM128)]
+    num_rows = torch.tensor(n, dtype=torch.int64, device=dev)
+
+    def kernel():
+        return A.direct_agg(cap, num_rows, keys, [3, 2], inputs, mask)
+
+    def plain():
+        return A._direct_agg_plain(cap, num_rows, keys, [3, 2], inputs, mask)
+
+    k, p = kernel(), plain()
+    for name in ("rows", "cnt", "isum", "lsum"):
+        if not exact(k[name], p[name]):
+            fail(f"direct_agg 128-bit mode: {name} differs from the plain "
+                 f"version")
+    err = close(k["fsum"], p["fsum"], RTOL_SUM)
+    live = int((mask[:n]).sum())
+    # keys, key nulls and the mask per valid row; per live row each
+    # input's value (8 B, or 32 B of lanes) and null flag
+    nbytes = n * (2 * 5 + 1) + live * (3 * 9 + 2 * 33)
+    return {"name": "direct_agg_sum128", "route": "cuda",
+            "source": "presto_tpu_torch/csrc/direct_agg.cu",
+            "replaces": "presto_tpu/ops/aggregate.py:284",
+            "max_abs_err": err,
+            "ms": cuda_time_ms(kernel, repeat),
+            "plain_ms": cuda_time_ms(plain, max(repeat // 4, 2)),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "library_ms": None}
+
+
+def kernel_segment_sum128(rng, dev, repeat):
+    """K3's 128-bit sum mode at the q18 block's SF1 shape (1.5M segments
+    of 1-7 rows over 6.0M rows) on limb lanes over the full range with
+    the 2 x 9.9e37 rows, and on int64 values."""
+    import torch
+    from presto_tpu_torch.ops import scan as S
+    cap, g_cap = 8_388_608, 2_097_152
+    lines = rng.integers(1, 8, 1_500_000)
+    ends_np = np.cumsum(lines)
+    starts_np = ends_np - lines
+    n = int(ends_np[-1])
+    pad = g_cap - len(lines)
+    starts = torch_from(np.concatenate([starts_np, np.full(pad, n)]), dev)
+    ends = torch_from(np.concatenate([ends_np, np.full(pad, n)]), dev)
+    lanes = _wide_values(rng, cap, dev, n)
+    live = torch.arange(cap, device=dev) < n
+
+    def kernel():
+        return S.segment_reduce(lanes, live, starts, ends, S.WANT_SUM128)
+
+    def plain():
+        return S._segment_reduce_plain(lanes, live, starts, ends,
+                                       S.WANT_SUM128)
+
+    for vals in (lanes, torch_from(rng.integers(-2 ** 62, 2 ** 62, cap),
+                                   dev)):
+        k = S.segment_reduce(vals, live, starts, ends, S.WANT_SUM128)
+        p = S._segment_reduce_plain(vals, live, starts, ends, S.WANT_SUM128)
+        if not (exact(k["cnt"], p["cnt"]) and exact(k["lsum"], p["lsum"])):
+            fail("segment_reduce 128-bit mode differs from the plain version")
+    # limb lanes and live flags of the segmented rows, starts/ends read,
+    # counts and four limb sums written
+    nbytes = n * 33 + g_cap * 16 + g_cap * 40
+    return {"name": "segment_reduce_sum128", "route": "cuda",
+            "source": "presto_tpu_torch/csrc/segment_reduce.cu",
+            "replaces": "presto_tpu/ops/aggregate.py:612",
+            "max_abs_err": 0.0,
+            "ms": cuda_time_ms(kernel, repeat),
+            "plain_ms": cuda_time_ms(plain, max(repeat // 4, 2)),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "library_ms": None}
 
 
 def _q13_join_inputs(conn, dev):
@@ -847,41 +1095,89 @@ def _device_kernels(fn) -> int:
                if ev.device_type.name == "CUDA")
 
 
-def _full_outer_append_row(ds_conn, repeat) -> dict:
-    """full_outer_append (torch + K2) at TPC-DS q97's SF1 shape: the
-    arguments of its largest call while q97 runs on the card."""
-    from presto_tpu_torch.exec.engine import LocalEngine
-    from presto_tpu_torch.ops import join as J
+def _capture(module, name: str, engine, sql: str, size):
+    """(the function, the arguments of its largest call by `size`) of
+    module.<name> while `sql` runs on `engine`."""
     calls = []
-    orig = J.full_outer_append
+    orig = getattr(module, name)
 
     def record(*args):
         calls.append(args)
         return orig(*args)
 
-    J.full_outer_append = record
+    setattr(module, name, record)
     try:
-        LocalEngine(ds_conn).execute_sql(tpcds_queries()[0][97])
+        engine.execute_sql(sql)
     finally:
-        J.full_outer_append = orig
-    left, probe, build, unmatched = max(
-        calls, key=lambda c: c[1].capacity + c[2].capacity)
+        setattr(module, name, orig)
+    return orig, max(calls, key=size)
 
-    def fn():
-        return orig(left, probe, build, unmatched)
 
-    pcap, bcap = probe.capacity, build.capacity
-    width = sum(c.values.element_size() + 1 for c in left.columns)
-    # the left page and the build columns read, the unmatched flags read,
-    # the appended page written (values and null flags)
-    nbytes = (pcap * width
-              + bcap * (sum(c.values.element_size() + 1
-                            for c in build.columns) + 1)
-              + (pcap + bcap) * width)
-    return {"stage": "full_outer_append", "shape": "q97 FULL join",
-            "rows": pcap + bcap, "ms": cuda_time_ms(fn, repeat),
+def _row_bytes(columns) -> int:
+    """Bytes of one row of `columns`: each value and its null flag."""
+    return sum(c.values.element_size() + 1 for c in columns)
+
+
+def _stage_row(stage, shape, rows, fn, nbytes, repeat) -> dict:
+    return {"stage": stage, "shape": shape, "rows": rows,
+            "ms": cuda_time_ms(fn, repeat),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "device_kernels": _device_kernels(fn)}
+
+
+def _full_outer_append_row(ds_conn, repeat) -> dict:
+    """full_outer_append (torch + K2) at TPC-DS q97's SF1 shape: the
+    arguments of its largest call while q97 runs on the card."""
+    from presto_tpu_torch.exec.engine import LocalEngine
+    from presto_tpu_torch.ops import join as J
+    orig, (left, probe, build, unmatched) = _capture(
+        J, "full_outer_append", LocalEngine(ds_conn),
+        tpcds_queries()[0][97], lambda c: c[1].capacity + c[2].capacity)
+    pcap, bcap = probe.capacity, build.capacity
+    width = _row_bytes(left.columns)
+    # the left page and the build columns read, the unmatched flags read,
+    # the appended page written (values and null flags)
+    nbytes = (pcap * width + bcap * (_row_bytes(build.columns) + 1)
+              + (pcap + bcap) * width)
+    return _stage_row("full_outer_append", "q97 FULL join", pcap + bcap,
+                      lambda: orig(left, probe, build, unmatched), nbytes,
+                      repeat)
+
+
+def _breadth_op_rows(conn, ds_conn, repeat) -> list:
+    """MarkDistinct, GroupId and UNION ALL at their SF1 shapes: the
+    arguments of each one's largest call while the breadth path's TPC-H
+    count(distinct), TPC-DS q67's ROLLUP and q75's UNION ALL run on the
+    card."""
+    from presto_tpu_torch.exec import executor as X
+    from presto_tpu_torch.exec.engine import LocalEngine
+    ds = tpcds_queries()[0]
+    orig, (page, keys, name) = _capture(
+        X, "mark_distinct", LocalEngine(conn),
+        TPCH_BREADTH["h_distinct"][0], lambda c: c[0].capacity)
+    cap, width = page.capacity, _row_bytes(page.columns)
+    # every column read and written in the new order, the flag written
+    md = _stage_row("mark_distinct", "lineitem count(distinct l_suppkey)",
+                    cap, lambda: orig(page, keys, name),
+                    cap * (2 * width + 2), repeat)
+    orig, (src, node) = _capture(X, "group_id_page", LocalEngine(ds_conn),
+                                 ds[67], lambda c: c[0].capacity)
+    cap, width = src.capacity, _row_bytes(src.columns)
+    sets = len(node.grouping_sets)
+    # the source read once, each set's copy and the set id written
+    gi = _stage_row("group_id", f"q67 ROLLUP, {sets} sets", sets * cap,
+                    lambda: orig(src, node), cap * width
+                    + sets * cap * (width + 9), repeat)
+    orig, (ps, node, merged) = _capture(
+        X, "union_all_pages", LocalEngine(ds_conn), ds[75],
+        lambda c: sum(p.capacity for p in c[0]))
+    rows = sum(p.capacity for p in ps)
+    # each branch read once, the concatenated page written once
+    nbytes = sum(p.capacity * _row_bytes(p.columns) for p in ps) \
+        + rows * _row_bytes(ps[0].columns)
+    ua = _stage_row("union_all", f"q75, {len(ps)} branches", rows,
+                    lambda: orig(ps, node, merged), nbytes, repeat)
+    return [md, gi, ua]
 
 
 def torch_op_rows(conn, ds_conn, dev, repeat) -> list:
@@ -896,7 +1192,9 @@ def torch_op_rows(conn, ds_conn, dev, repeat) -> list:
       o_orderdate, the ORDER BY of q18's shape over a whole table;
     - compile_expr: q01's filter and its projections over lineitem, the
       elementwise passes its fused aggregation evaluates;
-    - full_outer_append: TPC-DS q97's FULL join tail."""
+    - full_outer_append: TPC-DS q97's FULL join tail;
+    - mark_distinct, group_id and union_all: the breadth path's largest
+      MarkDistinct, GroupId and UNION ALL calls."""
     import torch
     from presto_tpu_torch.exec.engine import LocalEngine
     from presto_tpu_torch.expr.compile import compile_expr
@@ -966,6 +1264,7 @@ def torch_op_rows(conn, ds_conn, dev, repeat) -> list:
                  "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                  "device_kernels": _device_kernels(evaluate)})
     rows.append(_full_outer_append_row(ds_conn, repeat))
+    rows.extend(_breadth_op_rows(conn, ds_conn, repeat))
     print("torch-op stages at SF1: " + json.dumps(rows), flush=True)
     return rows
 
@@ -1280,6 +1579,114 @@ def breadth_path(ds_conn, h_conn, counters) -> dict:
     return launches
 
 
+class ModeCount:
+    """A kernel mode's launch count (the wrapper's `sum128_launches`),
+    read and reset as a wrapper's `launches` is."""
+
+    def __init__(self, fn, name: str):
+        self.fn, self.__name__ = fn, name
+
+    @property
+    def launches(self) -> int:
+        return self.fn.sum128_launches
+
+    @launches.setter
+    def launches(self, v: int) -> None:
+        self.fn.sum128_launches = v
+
+
+def _half_up(num: int, den: int) -> int:
+    q, r = divmod(abs(num), den)
+    q += 2 * r >= den
+    return q if num >= 0 else -q
+
+
+def decimal_numpy_reference(table) -> dict:
+    """q01 and q06 over the DECIMAL(12,2) lineitem with numpy int64 alone:
+    sums of unscaled cents, products at scale 4 and 6 (q01's sum_charge
+    per group is about 1.7e17 units of 1e-6 at SF1, inside int64), averages
+    HALF_UP at scale 2."""
+    from decimal import Decimal
+    a = {c: v[:table.num_rows] for c, v in table.arrays.items()}
+    words = {c: table.dicts[c].words for c in ("l_returnflag",
+                                                "l_linestatus")}
+    ship, qty, price = a["l_shipdate"], a["l_quantity"], a["l_extendedprice"]
+    disc, tax = a["l_discount"], a["l_tax"]
+    f = ship <= _days(1998, 12, 1) - 90
+    nls = len(words["l_linestatus"])
+    code = a["l_returnflag"][f].astype(np.int64) * nls + a["l_linestatus"][f]
+    uniq, inv = np.unique(code, return_inverse=True)
+    disc_price = price[f] * (100 - disc[f])
+    charge = disc_price * (100 + tax[f])
+
+    def sums(w):
+        out = np.zeros(len(uniq), np.int64)
+        np.add.at(out, inv, w)
+        return out
+    cnt = np.bincount(inv)
+    s = [sums(w) for w in (qty[f], price[f], disc_price, charge)]
+    avg = [sums(w) for w in (qty[f], price[f], disc[f])]
+    q01 = []
+    for i, u in enumerate(uniq):
+        q01.append((words["l_returnflag"][u // nls],
+                    words["l_linestatus"][u % nls],
+                    *(Decimal(int(x[i])).scaleb(-k)
+                      for x, k in zip(s, (2, 2, 4, 6))),
+                    *(Decimal(_half_up(int(x[i]), int(cnt[i]))).scaleb(-2)
+                      for x in avg), int(cnt[i])))
+    m = ((ship >= _days(1994, 1, 1)) & (ship < _days(1995, 1, 1))
+         & (disc >= 5) & (disc <= 7) & (qty < 2400))
+    q06 = [(Decimal(int(np.sum(price[m] * disc[m]))).scaleb(-4),)]
+    return {"q01": q01, "q06": q06}
+
+
+def decimal_path(conn, counters) -> dict:
+    """Phase 4c: TPC-H q01, q03, q06, q10 and q19 over lineitem with its
+    money columns typed DECIMAL(12,2) (the spec's types), cold and warm on
+    the card, with the kernels' launch counts set to 0 just before and
+    read just after; the warm rows held against the cold ones and against
+    the engine on the CPU exactly (Decimal for Decimal), and for q01 and
+    q06 against numpy int64. K10 and the 128-bit modes of K1 and K3 must
+    have been launched."""
+    from decimal import Decimal
+
+    from presto_tpu_torch.exec.engine import LocalEngine
+
+    t = time.perf_counter()
+    mem = decimal_connector(conn)
+    expected = decimal_numpy_reference(mem.table("lineitem"))
+    print(f"DECIMAL(12,2) lineitem at SF{SF} and its numpy reference in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    queries = decimal_queries()
+    gpu = LocalEngine(mem)
+    required = [k.__name__ for k in counters[:3]]
+    rows, walls, per_query, launches = _run_queries(
+        gpu, queries, counters, "decimal path", required)
+    cpu = LocalEngine(mem, device="cpu")
+    names = [k.__name__ for k in counters]
+    for name, (sql, ordered) in queries.items():
+        cold, warm = rows[name]
+        if cold != warm:
+            fail(f"{name} decimal: card cold rows differ from warm rows")
+        t = time.perf_counter()
+        want = cpu.execute_sql(sql)
+        cpu_s = time.perf_counter() - t
+        if warm != want:
+            fail(f"{name} decimal: card rows differ from the CPU's")
+        if name in expected and warm != expected[name]:
+            fail(f"{name} decimal: card rows differ from numpy's: "
+                 f"{warm[:2]} != {expected[name][:2]}")
+        if not any(isinstance(v, Decimal) for v in warm[0]):
+            fail(f"{name} decimal: no Decimal in the rows")
+        print(f"{name} decimal: {len(warm)} rows equal the CPU's"
+              f"{' and numpy' if name in expected else ''}; card wall cold "
+              f"{walls[name][0] * 1e3:.1f} ms, warm "
+              f"{walls[name][1] * 1e3:.1f} ms; CPU {cpu_s:.2f} s; launches "
+              f"per run {names} cold {per_query[name][0]} warm "
+              f"{per_query[name][1]}", flush=True)
+    return launches
+
+
 def sqlite_phase(counters) -> None:
     """All 22 TPC-H queries and the window and grouping-set queries of
     the test files at SQLITE_SF, and all 99 TPC-DS queries at
@@ -1358,6 +1765,7 @@ def main() -> int:
     from presto_tpu_torch import native
     from presto_tpu_torch.connectors import TpcdsConnector, TpchConnector
     from presto_tpu_torch.data.column import compact_indices
+    from presto_tpu_torch.data.int128 import int128_op
     from presto_tpu_torch.exec.engine import LocalEngine
     from presto_tpu_torch.ops.aggregate import direct_agg
     from presto_tpu_torch.ops.join import join_expand, join_probe
@@ -1408,7 +1816,10 @@ def main() -> int:
               kernel_join_expand(conn, dev, REPEAT),
               kernel_seg_scan(q51_calls, conn, dev, REPEAT),
               kernel_key_change(conn, dev, REPEAT),
-              kernel_window_frame(conn, dev, REPEAT)]
+              kernel_window_frame(conn, dev, REPEAT),
+              kernel_int128(rng, dev, REPEAT),
+              kernel_direct_agg_sum128(rng, dev, REPEAT),
+              kernel_segment_sum128(rng, dev, REPEAT)]
     del q51_calls
     torch_op_rows(conn, ds_conn, dev, REPEAT)
     torch.cuda.synchronize()
@@ -1431,9 +1842,20 @@ def main() -> int:
     print(f"phase 4b: breadth path in {time.perf_counter() - t0:.1f} s; "
           f"launches {breadth}; torch-op stage calls {calls.counts}",
           flush=True)
-    for r in report:
-        r["launches"] = launches[r["name"]] + breadth[r["name"]]
     del ds_conn
+    decimal_counters = [int128_op, ModeCount(direct_agg, "direct_agg_sum128"),
+                        ModeCount(segment_reduce, "segment_reduce_sum128")] \
+        + counters
+    calls.reset()
+    t0 = time.perf_counter()
+    decimal = decimal_path(conn, decimal_counters)
+    print(f"phase 4c: decimal path in {time.perf_counter() - t0:.1f} s; "
+          f"launches {decimal}; torch-op stage calls {calls.counts}",
+          flush=True)
+    for r in report:
+        r["launches"] = (launches.get(r["name"], 0)
+                         + breadth.get(r["name"], 0)
+                         + decimal.get(r["name"], 0))
     t0 = time.perf_counter()
     sqlite_phase(counters)
     print(f"phase 5: sqlite comparisons in {time.perf_counter() - t0:.1f} s",

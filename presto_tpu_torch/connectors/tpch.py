@@ -30,10 +30,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from presto_tpu_torch.data.column import (
-    Column, Page, StringDict, bucket_capacity, resolve_device,
+    Column, Decimal128Column, Page, StringDict, bucket_capacity,
+    resolve_device, unscale_array,
 )
 from presto_tpu_torch.expr.compile import days_from_civil
-from presto_tpu_torch.types import BIGINT, DATE, DOUBLE, INTEGER, VARCHAR, Type
+from presto_tpu_torch.types import (
+    BIGINT, DATE, DOUBLE, INTEGER, VARCHAR, DecimalType, Type,
+)
 
 # ---------------------------------------------------------------------------
 # schema
@@ -230,15 +233,21 @@ class HostTable:
             col = cache.get(key)
             if col is None:
                 t = self.types[c]
-                if t.name in ("array", "map", "row") \
-                        or getattr(t, "uses_int128", False):
+                if t.name in ("array", "map", "row"):
                     raise NotImplementedError(
                         f"column type {t}: later slice of the port")
-                col = Column.from_numpy(
-                    self.arrays[c][:self.num_rows], t,
-                    nulls=self.null_mask(c),
-                    dictionary=self.dicts.get(c), capacity=cap,
-                    device=dev)
+                if getattr(t, "uses_int128", False):
+                    # DECIMAL(p>18) at rest: python-int unscaled values
+                    # -> four 32-bit limb lanes (exact 38-digit range)
+                    col = Decimal128Column.from_unscaled_ints(
+                        list(self.arrays[c][:self.num_rows]), t,
+                        nulls=self.null_mask(c), capacity=cap, device=dev)
+                else:
+                    col = Column.from_numpy(
+                        self.arrays[c][:self.num_rows], t,
+                        nulls=self.null_mask(c),
+                        dictionary=self.dicts.get(c), capacity=cap,
+                        device=dev)
                 cache[key] = col
             out.append(col)
         return Page.from_columns(out, self.num_rows, cols, device=dev)
@@ -461,6 +470,25 @@ def _gen_orders_lineitem(which: str, sf: float) -> HostTable:
     ).astype(object))
     put_str("o_comment", _comment(rng, n, 5))
     return HostTable("orders", n, arrays, dict(TPCH_SCHEMA["orders"]), dicts)
+
+
+#: lineitem's money columns, which the TPC-H spec types as exact decimals
+#: (clause 1.4.1); the generator gives them as float64 cents
+LINEITEM_MONEY = ("l_quantity", "l_extendedprice", "l_discount", "l_tax")
+
+
+def decimal_lineitem(scale_factor: float) -> HostTable:
+    """The generated lineitem with its four money columns typed as the
+    spec types them, DECIMAL(12,2): int64 unscaled cents, each value
+    rounded as `unscale_decimal` rounds it. Other columns are shared with
+    the generated table. Serve it through a MemoryConnector whose fallback
+    is TpchConnector(scale_factor)."""
+    src = _gen_table("lineitem", scale_factor)
+    arrays, types = dict(src.arrays), dict(src.types)
+    for c in LINEITEM_MONEY:
+        arrays[c] = unscale_array(src.arrays[c][:src.num_rows], 2)
+        types[c] = DecimalType(12, 2)
+    return HostTable("lineitem", src.num_rows, arrays, types, src.dicts)
 
 
 from presto_tpu_torch.connectors.base import SplitSource

@@ -10,13 +10,25 @@
 // NULL), the float64 sum, the int64 sum (wrapping, integer inputs), and
 // min/max; per bin the count of valid rows (count(*)).
 //
+// 128-bit sum mode (WANT_SUM128; the DECIMAL(38) kinds sum128/avg128 of
+// presto_tpu/ops/aggregate.py:284-313): four int64 sums per (bin, input),
+// one per 32-bit limb lane. An input is either four limb lanes (a
+// DECIMAL(p>18) column, DT_LIMBS) or int64/int32 values that each thread
+// decomposes into limbs in registers (v >> 63, its low 32 bits, ...), so no
+// decomposed copy is written. Each limb sum is an int64 that can take 2^31
+// row limbs without a carry; the exact value is recombined on the host, so
+// group sums stay exact past 2^127, where one __int128 accumulator would
+// wrap. With the mode on, each input's slot group grows from 5 to 9
+// accumulators.
+//
 // No float atomics anywhere, so results repeat from run to run:
 //   pass 1: each warp takes 32 consecutive rows at a time (grid-stride).
 //           For each bin present among them (__ballot/__shfl over the
 //           lanes) it reduces the members with fixed xor-shuffle trees and
 //           lane 0 folds the results into the warp's own accumulators in
 //           shared memory. The block then combines its warps in order and
-//           writes one partial per block: [blocks, bins, 1 + 5 * inputs].
+//           writes one partial per block:
+//           [blocks, bins, 1 + per_input * inputs].
 //   pass 2: one warp per accumulator slot folds the block partials in a
 //           fixed order (lane-strided, then an xor tree).
 // The grid depends only on the row count, bins and inputs, so the
@@ -40,9 +52,11 @@
 #define DA_SMEM_BYTES 49152
 #define WANT_SUM 1
 #define WANT_MINMAX 2
+#define WANT_SUM128 4
 #define FULL 0xffffffffu
+#define M32 0xFFFFFFFFll
 
-enum { DT_F64 = 0, DT_I64 = 1, DT_I32 = 2 };
+enum { DT_F64 = 0, DT_I64 = 1, DT_I32 = 2, DT_LIMBS = 3 };
 
 // Mirrored field for field by presto_tpu_torch/ops/aggregate.py
 // (_DirectAggArgs).
@@ -66,6 +80,9 @@ struct DirectAggArgs {
   int64_t* isum;              // [inputs, bins]
   int64_t* mn;                // [inputs, bins] float64 bits for dtype 0
   int64_t* mx;                // [inputs, bins]
+  const int64_t* in_limbs[DA_MAX_INPUTS][4];   // DT_LIMBS: l3, l2, l1, l0
+  int64_t* lsum;              // [inputs, 4, bins] limb sums (WANT_SUM128)
+  int32_t per_input;          // accumulators per input: 5, or 9 with limbs
 };
 
 static __device__ __forceinline__ double as_f(long long w) {
@@ -87,11 +104,12 @@ static __device__ __forceinline__ double fmax_prop(double a, double b) {
   return b > a ? b : a;
 }
 
-// k: position inside one bin's slot group (0 = rows, then 5 per input)
+// k: position inside one bin's slot group (0 = rows, then per_input per
+// input: count, fsum, isum, min, max and, with limbs, four limb sums)
 static __device__ __forceinline__ long long slot_identity(
     const DirectAggArgs& a, int k) {
   if (k == 0) return 0;
-  const int j = (k - 1) / 5, stat = (k - 1) % 5;
+  const int j = (k - 1) / a.per_input, stat = (k - 1) % a.per_input;
   const bool f = a.in_dtype[j] == DT_F64;
   if (stat == 3) return f ? as_w(INFINITY) : LLONG_MAX;
   if (stat == 4) return f ? as_w(-INFINITY) : LLONG_MIN;
@@ -101,14 +119,14 @@ static __device__ __forceinline__ long long slot_identity(
 static __device__ __forceinline__ long long slot_combine(
     const DirectAggArgs& a, int k, long long x, long long y) {
   if (k == 0) return x + y;
-  const int j = (k - 1) / 5, stat = (k - 1) % 5;
+  const int j = (k - 1) / a.per_input, stat = (k - 1) % a.per_input;
   const bool f = a.in_dtype[j] == DT_F64;
   switch (stat) {
     case 0: return x + y;
     case 1: return as_w(as_f(x) + as_f(y));
-    case 2: return wrap_add(x, y);
     case 3: return f ? as_w(fmin_prop(as_f(x), as_f(y))) : (y < x ? y : x);
-    default: return f ? as_w(fmax_prop(as_f(x), as_f(y))) : (y > x ? y : x);
+    case 4: return f ? as_w(fmax_prop(as_f(x), as_f(y))) : (y > x ? y : x);
+    default: return wrap_add(x, y);   // int64 sum, limb sums
   }
 }
 
@@ -118,7 +136,7 @@ __global__ void direct_agg_partials(const DirectAggArgs a,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  const int per_bin = 1 + 5 * a.num_inputs;
+  const int per_bin = 1 + a.per_input * a.num_inputs;
   const int slots = a.bins * per_bin;
   long long* acc = smem + (size_t)warp * slots;
   for (int s = lane; s < slots; s += 32) acc[s] = slot_identity(a, s % per_bin);
@@ -156,17 +174,26 @@ __global__ void direct_agg_partials(const DirectAggArgs a,
         const int want = a.in_want[j];
         double f = 0.0;
         long long v = 0;
+        long long limb[4] = {0, 0, 0, 0};
         if (lj) {
-          if (dt == DT_F64) {
+          if (dt == DT_LIMBS) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) limb[q] = a.in_limbs[j][q][i];
+          } else if (dt == DT_F64) {
             f = ((const double*)a.in_values[j])[i];
           } else {
             v = dt == DT_I64 ? ((const long long*)a.in_values[j])[i]
                              : (long long)((const int*)a.in_values[j])[i];
             f = (double)v;
+            // the limbs of a narrow value, as int128.from_int64
+            limb[0] = v >> 63;
+            limb[1] = limb[0] & M32;
+            limb[2] = (v >> 32) & M32;
+            limb[3] = v & M32;
           }
         }
         const unsigned mj = __ballot_sync(FULL, lj);
-        long long* st = slot + 1 + 5 * j;
+        long long* st = slot + 1 + a.per_input * j;
         if (lane == 0) st[0] += __popc(mj);
         if (want & WANT_SUM) {
           double fs = lj ? f : 0.0;
@@ -180,6 +207,16 @@ __global__ void direct_agg_partials(const DirectAggArgs a,
             for (int o = 16; o > 0; o >>= 1)
               is = wrap_add(is, __shfl_xor_sync(FULL, is, o));
             if (lane == 0) st[2] = wrap_add(st[2], is);
+          }
+        }
+        if (want & WANT_SUM128) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            long long ls = limb[q];
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1)
+              ls = wrap_add(ls, __shfl_xor_sync(FULL, ls, o));
+            if (lane == 0) st[5 + q] = wrap_add(st[5 + q], ls);
           }
         }
         if (want & WANT_MINMAX) {
@@ -228,7 +265,7 @@ __global__ void direct_agg_partials(const DirectAggArgs a,
 __global__ void direct_agg_final(const DirectAggArgs a,
                                  const long long* __restrict__ partials,
                                  int blocks) {
-  const int per_bin = 1 + 5 * a.num_inputs;
+  const int per_bin = 1 + a.per_input * a.num_inputs;
   const int slots = a.bins * per_bin;
   const int lane = threadIdx.x & 31;
   const int s = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
@@ -245,14 +282,15 @@ __global__ void direct_agg_final(const DirectAggArgs a,
     a.rows[b] = r;
     return;
   }
-  const int j = (k - 1) / 5, stat = (k - 1) % 5;
+  const int j = (k - 1) / a.per_input, stat = (k - 1) % a.per_input;
   const int idx = j * a.bins + b;
   switch (stat) {
     case 0: a.cnt[idx] = r; break;
     case 1: a.fsum[idx] = as_f(r); break;
     case 2: a.isum[idx] = r; break;
     case 3: a.mn[idx] = r; break;
-    default: a.mx[idx] = r; break;
+    case 4: a.mx[idx] = r; break;
+    default: a.lsum[((size_t)j * 4 + (stat - 5)) * a.bins + b] = r; break;
   }
 }
 
@@ -269,9 +307,13 @@ int direct_agg(const void* args, void* scratch, int64_t scratch_words,
   const DirectAggArgs& a = *(const DirectAggArgs*)args;
   if (a.num_keys < 0 || a.num_keys > DA_MAX_KEYS || a.bins < 1
       || a.bins > DA_MAX_BINS || a.num_inputs < 0
-      || a.num_inputs > DA_MAX_INPUTS || a.n < 0)
+      || a.num_inputs > DA_MAX_INPUTS || a.n < 0
+      || (a.per_input != 5 && a.per_input != 9))
     return (int)cudaErrorInvalidValue;
-  const int64_t slots = (int64_t)a.bins * (1 + 5 * a.num_inputs);
+  for (int j = 0; j < a.num_inputs; ++j)
+    if ((a.in_want[j] & WANT_SUM128) && a.per_input != 9)
+      return (int)cudaErrorInvalidValue;
+  const int64_t slots = (int64_t)a.bins * (1 + a.per_input * a.num_inputs);
   int warps = (int)(DA_SMEM_BYTES / (slots * 8));
   warps = warps > 8 ? 8 : warps;
   if (warps < 1 || scratch_words < slots) return (int)cudaErrorInvalidValue;

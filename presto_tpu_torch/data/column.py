@@ -51,6 +51,19 @@ def unscale_decimal(v, scale: int) -> int:
         rounding=_decimal.ROUND_HALF_UP))
 
 
+def unscale_array(values: np.ndarray, scale: int) -> np.ndarray:
+    """Float values -> int64 unscaled at `scale`, as `unscale_decimal`
+    rounds each one (HALF_UP of its decimal form), for values that carry at
+    most `scale` decimals: every value must lie within 1e-6 units of an
+    integer at that scale, where HALF_UP and round-to-nearest agree, else
+    ValueError."""
+    scaled = np.asarray(values, dtype=np.float64) * float(10 ** scale)
+    out = np.rint(scaled)
+    if np.any(np.abs(scaled - out) > 1e-6):
+        raise ValueError(f"values with more than {scale} decimals")
+    return out.astype(np.int64)
+
+
 def resolve_device(device=None) -> torch.device:
     """The device policy of the port: None means the card. A CUDA device
     with no card present raises; the CPU is used only when asked for."""
@@ -178,6 +191,163 @@ class Column:
         return Column(vals, nulls, self.type, self.dictionary)
 
 @dataclasses.dataclass
+class Decimal128Column:
+    """DECIMAL(p>18) values (table storage, partial states and final
+    aggregates) as FOUR 32-bit limb lanes in int64 tensors, the JAX
+    package's layout (presto_tpu/data/column.py:206):
+
+        exact value = (l3 << 96) + (l2 << 64) + (l1 << 32) + l0
+
+    Any int64 per lane is a valid representation; kernels write normalized
+    lanes (l3 signed, l2..l0 in [0, 2^32)), the plain version the JAX
+    functions' lanes. Each lane can accumulate 2^31 row limbs without a
+    carry, so sums are per-lane sums and stay exact past 2^127; carries
+    resolve on the host in `value_at`. With `count` set the logical value
+    is the AVERAGE: the exact sum / count rounded HALF_UP at the type's
+    scale."""
+    l3: torch.Tensor             # [capacity] int64 (signed top limbs)
+    l2: torch.Tensor             # [capacity] int64
+    l1: torch.Tensor             # [capacity] int64
+    l0: torch.Tensor             # [capacity] int64
+    nulls: torch.Tensor          # [capacity] bool
+    type: Type                   # DecimalType(p>18, s)
+    count: Optional[torch.Tensor] = None   # avg denominator
+
+    @property
+    def capacity(self) -> int:
+        return self.l3.shape[0]
+
+    @property
+    def dictionary(self):
+        return None
+
+    @property
+    def value_lanes(self):
+        return (self.l3, self.l2, self.l1, self.l0)
+
+    # -- construction -----------------------------------------------------
+    @staticmethod
+    def decompose_int64(v: torch.Tensor):
+        """Limb lanes of int64 unscaled values (data/int128.from_int64)."""
+        from presto_tpu_torch.data import int128
+        return int128.from_int64(v)
+
+    @staticmethod
+    def from_unscaled_ints(ints, type: Type, nulls=None,
+                           capacity: Optional[int] = None,
+                           device=None) -> "Decimal128Column":
+        """Host build from python-int unscaled values (exact for the full
+        38-digit range); None or a set null flag is a NULL row."""
+        n = len(ints)
+        cap = capacity if capacity is not None else bucket_capacity(n)
+        lanes = [np.zeros(cap, np.int64) for _ in range(4)]
+        nl = np.ones(cap, dtype=bool)
+        for i, v in enumerate(ints):
+            if v is None or (nulls is not None and nulls[i]):
+                continue
+            nl[i] = False
+            v = int(v)
+            lanes[0][i] = v >> 96
+            lanes[1][i] = (v >> 64) & 0xFFFFFFFF
+            lanes[2][i] = (v >> 32) & 0xFFFFFFFF
+            lanes[3][i] = v & 0xFFFFFFFF
+        return Decimal128Column.from_numpy_lanes(lanes, nl, type,
+                                                 device=device)
+
+    @staticmethod
+    def from_numpy_lanes(lanes, nulls, type: Type, count=None,
+                         device=None) -> "Decimal128Column":
+        """From numpy lanes (l3, l2, l1, l0), as the JAX column holds
+        them, and a null mask of the same length."""
+        dev = resolve_device(device)
+
+        def up(a, dt):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(dev)
+        return Decimal128Column(
+            *[up(x, np.int64) for x in lanes], up(nulls, np.bool_), type,
+            None if count is None else up(count, np.int64))
+
+    # -- row-lane protocol (gathers, compaction) --------------------------
+    def row_lanes(self):
+        lanes = [self.l3, self.l2, self.l1, self.l0, self.nulls]
+        if self.count is not None:
+            lanes.append(self.count)
+        return lanes
+
+    def from_lanes(self, lanes) -> "Decimal128Column":
+        return Decimal128Column(*lanes[:5], self.type,
+                                lanes[5] if self.count is not None else None)
+
+    @staticmethod
+    def mask_lanes(lanes, valid):
+        """Zero value/count lanes and null out rows where ~valid; lane
+        order as row_lanes() (nulls at index 4)."""
+        out = list(lanes)
+        for j in (0, 1, 2, 3):
+            out[j] = torch.where(valid, out[j], 0)
+        out[4] = out[4] | ~valid
+        if len(out) > 5:
+            out[5] = torch.where(valid, out[5], 0)
+        return out
+
+    def gather(self, idx: torch.Tensor, valid=None) -> "Decimal128Column":
+        """Gather rows (indices clamped into range); rows where valid is
+        False become NULL with zero lanes."""
+        idx = idx.long().clamp(0, max(self.capacity - 1, 0))
+        lanes = [x[idx] for x in self.row_lanes()]
+        if valid is not None:
+            lanes = Decimal128Column.mask_lanes(lanes, valid)
+        return self.from_lanes(lanes)
+
+    # -- host access ------------------------------------------------------
+    def to_numpy(self, num_rows: Optional[int] = None):
+        """(approximate float values, nulls): ordering and debugging only;
+        exact values come from value_at."""
+        v = sum(x.cpu().numpy().astype(np.float64) * float(2 ** s)
+                for x, s in zip(self.value_lanes, (96, 64, 32, 0)))
+        n = self.nulls.cpu().numpy()
+        if num_rows is not None:
+            v, n = v[:num_rows], n[:num_rows]
+        return v, n
+
+    def _host(self):
+        """One host transfer per lane, memoized: (lanes, nulls, count or
+        None) as numpy arrays."""
+        cached = getattr(self, "_host_cache", None)
+        if cached is None:
+            cached = (tuple(x.cpu().numpy() for x in self.value_lanes),
+                      self.nulls.cpu().numpy(),
+                      None if self.count is None
+                      else self.count.cpu().numpy())
+            object.__setattr__(self, "_host_cache", cached)
+        return cached
+
+    def unscaled_at(self, i: int) -> int:
+        from presto_tpu_torch.data.int128 import to_python_int
+        return to_python_int(self._host()[0], i)
+
+    def value_at(self, i: int):
+        """Exact python value of row i (a Decimal at the type's scale)."""
+        _lanes, nulls, count = self._host()
+        if bool(nulls[i]):
+            return None
+        unscaled = self.unscaled_at(i)
+        if self.count is not None:
+            n = int(count[i])
+            if n == 0:
+                return None
+            # avg = sum / n rounded HALF_UP at the result scale
+            sign = -1 if (unscaled < 0) != (n < 0) else 1
+            q, r = divmod(abs(unscaled), abs(n))
+            if 2 * r >= abs(n):
+                q += 1
+            unscaled = sign * q
+        if self.type.scale == 0:
+            return unscaled
+        return scale_down_decimal(unscaled, self.type.scale)
+
+
+@dataclasses.dataclass
 class Page:
     columns: Tuple[Column, ...]
     num_rows: torch.Tensor       # 0-d int64 on the page's device
@@ -200,7 +370,7 @@ class Page:
     def from_columns(columns: Sequence[Column], num_rows,
                      names: Sequence[str] = (), device=None) -> "Page":
         if device is None and columns:
-            device = columns[0].values.device
+            device = columns[0].nulls.device
         dev = resolve_device(device)
         n = torch.as_tensor(num_rows, dtype=torch.int64).to(dev)
         return Page(tuple(columns), n.reshape(()), tuple(names))
@@ -212,13 +382,16 @@ class Page:
         n = int(self.num_rows)
         cols = []
         for c in self.columns:
-            v, nl = c.to_numpy(n)
+            v, nl = (None, None) if isinstance(c, Decimal128Column) \
+                else c.to_numpy(n)
             cols.append((c, v, nl))
         rows: List[tuple] = []
         for i in range(n):
             row = []
             for c, v, nl in cols:
-                if nl[i]:
+                if v is None:
+                    row.append(c.value_at(i))
+                elif nl[i]:
                     row.append(None)
                 elif c.type.is_string:
                     row.append(c.dictionary[int(v[i])]
@@ -241,14 +414,31 @@ def page_from_numpy(columns, types: Sequence[Type], names: Sequence[str] = (),
                     num_rows: Optional[int] = None) -> Page:
     """Build a Page from the numpy form of a page: per column
     `(values, nulls, dictionary words or None)`, as the JAX package's
-    `Column.to_numpy` plus `StringDict.words` give them. `num_rows`
-    defaults to the arrays' length; `capacity` to its bucket."""
+    `Column.to_numpy` plus `StringDict.words` give them. A DECIMAL(p>18)
+    column's values are its four numpy limb lanes (l3, l2, l1, l0), as the
+    JAX Decimal128Column holds them, or a sequence of python-int unscaled
+    values (None for NULL). `num_rows` defaults to the nulls' length;
+    `capacity` to its bucket."""
     cols = []
     n = num_rows if num_rows is not None else (
-        len(columns[0][0]) if columns else 0)
+        len(columns[0][1]) if columns else 0)
     cap = capacity if capacity is not None else bucket_capacity(
-        max(n, len(columns[0][0]) if columns else 0))
+        max(n, len(columns[0][1]) if columns else 0))
     for (vals, nulls, words), t in zip(columns, types):
+        if isinstance(t, DecimalType) and t.uses_int128:
+            nulls = np.asarray(nulls, dtype=bool)
+            if isinstance(vals, tuple) and len(vals) == 4:
+                pad = cap - len(nulls)
+                cols.append(Decimal128Column.from_numpy_lanes(
+                    [np.pad(np.asarray(x)[:cap], (0, max(pad, 0)))
+                     for x in vals],
+                    np.pad(nulls[:cap], (0, max(pad, 0)),
+                           constant_values=True), t, device=device))
+            else:
+                cols.append(Decimal128Column.from_unscaled_ints(
+                    list(vals), t, nulls=nulls, capacity=cap,
+                    device=device))
+            continue
         d = StringDict(words) if words is not None else None
         cols.append(Column.from_numpy(np.asarray(vals)[:cap], t,
                                       nulls=np.asarray(nulls)[:cap],

@@ -72,6 +72,69 @@ from presto_tpu_torch.plan.nodes import (
 )
 
 
+def group_id_page(p: Page, node: GroupIdNode) -> Page:
+    """GroupId (presto_tpu/exec/executor.py:1032-1074): the source page
+    once per grouping set in a set-major layout over its row count (set s
+    in rows [s*n, (s+1)*n)), the keys outside each set nulled, and the set
+    id appended."""
+    dev = p.device
+    nsets = len(node.grouping_sets)
+    member = torch.ones((nsets, node.arity - 1), dtype=torch.bool)
+    for si, keep in enumerate(node.grouping_sets):
+        for c in node.key_fields:
+            member[si, c] = c in keep
+    member = member.to(dev)
+    n = p.num_rows
+    r = torch.arange(nsets * p.capacity, dtype=torch.int64, device=dev)
+    n1 = n.clamp(min=1)
+    set_id = torch.clamp(r // n1, 0, nsets - 1)
+    srci = (r - set_id * n1).clamp(0, p.capacity - 1)
+    valid = r < nsets * n
+    cols = []
+    for ci, c in enumerate(p.columns):
+        keep = member[:, ci][set_id] & valid
+        sent = torch.tensor(c.type.null_sentinel(), dtype=c.values.dtype,
+                            device=dev)
+        cols.append(Column(torch.where(keep, c.values[srci], sent),
+                           torch.where(keep, c.nulls[srci], True),
+                           c.type, c.dictionary))
+    gt = node.output_types[-1]
+    gid = Column(torch.where(valid, set_id, torch.tensor(
+        gt.null_sentinel(), dtype=torch.int64, device=dev)), ~valid, gt,
+        None)
+    return Page(tuple(cols) + (gid,), nsets * n, node.output_names)
+
+
+def union_all_pages(ps: List[Page], node: UnionAllNode, merged_dict) -> Page:
+    """UNION ALL (presto_tpu/exec/executor.py:1112-1151): the branches'
+    columns concatenated, string codes remapped where the branches'
+    dictionaries differ (`merged_dict(dicts)` gives the merged dictionary
+    and each branch's remap or None), then compacted."""
+    dev = ps[0].device
+    out_cap = sum(p.capacity for p in ps)
+    cols = []
+    for ci, t in enumerate(node.output_types):
+        branch = [p.columns[ci] for p in ps]
+        d0 = branch[0].dictionary
+        if t.is_string and any(c.dictionary is not d0 for c in branch):
+            d0, remaps = merged_dict(tuple(c.dictionary for c in branch))
+            # codes remapped as the JAX take(mode="clip") does
+            vals = torch.cat([
+                r[c.values.long().clamp(0, r.shape[0] - 1)]
+                if r is not None else c.values
+                for c, r in zip(branch, remaps)])
+        else:
+            vals = torch.cat([c.values for c in branch])
+        nulls = torch.cat([c.nulls for c in branch])
+        cols.append(Column(vals, nulls, t, d0))
+    # each branch's valid rows sit at its own capacity offset: declare
+    # everything in range, then compact
+    keep = torch.cat([p.row_valid() for p in ps])
+    out = Page(tuple(cols), torch.tensor(out_cap, dtype=torch.int64,
+                                         device=dev), node.output_names)
+    return compact(out, keep)
+
+
 class QueryTimeoutError(RuntimeError):
     """query_max_execution_time exceeded (checked between operators)."""
 
@@ -226,13 +289,14 @@ class Executor:
                 return Page(p.columns + (col,), p.num_rows,
                             node.output_names)
             if isinstance(node, GroupIdNode):
-                return run_group_id(node)
+                return group_id_page(run(node.source), node)
             if isinstance(node, MarkDistinctNode):
                 out = mark_distinct(run(node.source), node.key_fields,
                                     node.output_names[-1])
                 return Page(out.columns, out.num_rows, node.output_names)
             if isinstance(node, UnionAllNode):
-                return run_union(node)
+                return union_all_pages([run(s) for s in node.sources], node,
+                                       merged_dict)
             if isinstance(node, WindowNode):
                 out = window_page(run(node.source), node.partition_fields,
                                   node.order_keys, node.specs)
@@ -249,37 +313,6 @@ class Executor:
             raise NotImplementedError(
                 f"lowering {type(node).__name__}: later slice of the port")
 
-        def run_group_id(node: GroupIdNode) -> Page:
-            # presto_tpu/exec/executor.py:1032-1074: set-major layout over
-            # the source's row count, set s in rows [s*n, (s+1)*n)
-            p = run(node.source)
-            nsets = len(node.grouping_sets)
-            member = torch.ones((nsets, node.arity - 1), dtype=torch.bool)
-            for si, keep in enumerate(node.grouping_sets):
-                for c in node.key_fields:
-                    member[si, c] = c in keep
-            member = member.to(dev)
-            n = p.num_rows
-            r = torch.arange(nsets * p.capacity, dtype=torch.int64,
-                             device=dev)
-            n1 = n.clamp(min=1)
-            set_id = torch.clamp(r // n1, 0, nsets - 1)
-            srci = (r - set_id * n1).clamp(0, p.capacity - 1)
-            valid = r < nsets * n
-            cols = []
-            for ci, c in enumerate(p.columns):
-                keep = member[:, ci][set_id] & valid
-                sent = torch.tensor(c.type.null_sentinel(),
-                                    dtype=c.values.dtype, device=dev)
-                cols.append(Column(torch.where(keep, c.values[srci], sent),
-                                   torch.where(keep, c.nulls[srci], True),
-                                   c.type, c.dictionary))
-            gt = node.output_types[-1]
-            gid = Column(torch.where(valid, set_id, torch.tensor(
-                gt.null_sentinel(), dtype=torch.int64, device=dev)),
-                ~valid, gt, None)
-            return Page(tuple(cols) + (gid,), nsets * n, node.output_names)
-
         def merged_dict(dicts: tuple):
             """The merged dictionary of a union's branches and each
             branch's code remap on the device (None: codes kept), built
@@ -292,35 +325,6 @@ class Executor:
                     for r in remaps])
                 self._merged_dicts[dicts] = got
             return got
-
-        def run_union(node: UnionAllNode) -> Page:
-            # presto_tpu/exec/executor.py:1112-1151
-            ps = [run(s) for s in node.sources]
-            out_cap = sum(p.capacity for p in ps)
-            cols = []
-            for ci, t in enumerate(node.output_types):
-                branch = [p.columns[ci] for p in ps]
-                d0 = branch[0].dictionary
-                if t.is_string and any(c.dictionary is not d0
-                                       for c in branch):
-                    d0, remaps = merged_dict(
-                        tuple(c.dictionary for c in branch))
-                    # codes remapped as the JAX take(mode="clip") does
-                    vals = torch.cat([
-                        r[c.values.long().clamp(0, r.shape[0] - 1)]
-                        if r is not None else c.values
-                        for c, r in zip(branch, remaps)])
-                else:
-                    vals = torch.cat([c.values for c in branch])
-                nulls = torch.cat([c.nulls for c in branch])
-                cols.append(Column(vals, nulls, t, d0))
-            # each branch's valid rows sit at its own capacity offset:
-            # declare everything in range, then compact
-            keep = torch.cat([p.row_valid() for p in ps])
-            out = Page(tuple(cols), torch.tensor(out_cap, dtype=torch.int64,
-                                                 device=dev),
-                       node.output_names)
-            return compact(out, keep)
 
         def run_aggregation(node: AggregationNode, nid: int) -> Page:
             # Fuse the Filter/Project chain below the aggregation into it:

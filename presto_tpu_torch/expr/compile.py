@@ -11,8 +11,11 @@ As in the JAX package, row-level division by zero yields NULL, and
 checked integer/decimal overflow sets the query's error lane
 (expr/errors.py).
 
-Not ported yet (they raise NotImplementedError): DECIMAL(38) values
-(data/int128.py limb lanes) and plugin/remote functions.
+DECIMAL(p>18) values are Decimal128Column limb lanes; every wide
+operation (rescale, add, subtract, multiply, compare, negate, abs and the
+casts to double and to int64) is one call of data/int128.int128_op, which
+launches the hand-written kernel K10 on the card. Not ported yet (they
+raise NotImplementedError): plugin and remote functions.
 """
 
 from __future__ import annotations
@@ -25,7 +28,10 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from presto_tpu_torch.data.column import Column, Page, StringDict, torch_dtype
+from presto_tpu_torch.data import int128 as I
+from presto_tpu_torch.data.column import (
+    Column, Decimal128Column, Page, StringDict, torch_dtype,
+)
 from presto_tpu_torch.types import (
     BIGINT, BOOLEAN, DATE, DOUBLE, TIMESTAMP, VARCHAR, DecimalType, Type,
 )
@@ -181,11 +187,6 @@ def _rescale_decimal(v: torch.Tensor, from_scale: int, to_scale: int,
     return torch.where(v >= 0, (v + f // 2) // f, -((-v + f // 2) // f))
 
 
-def _unported_wide(what: str):
-    raise NotImplementedError(
-        f"{what}: DECIMAL(38) (data/int128.py) is a later slice of the port")
-
-
 def _cast(col: Column, to: Type, valid=None) -> Column:
     """`valid`: rows taking part in checked range/overflow detection
     (user-facing CASTs pass it; internal coercions leave it None)."""
@@ -194,8 +195,8 @@ def _cast(col: Column, to: Type, valid=None) -> Column:
     frm = col.type
     if frm == to:
         return col
-    if isinstance(to, DecimalType) and to.uses_int128:
-        _unported_wide(f"cast {frm} -> {to}")
+    if _is_wide(col) or (isinstance(to, DecimalType) and to.uses_int128):
+        return _cast_wide(col, to, valid)
     tdt = torch_dtype(to)
     if frm.name == "unknown":  # typed NULL literal
         return Column(torch.full(col.values.shape, to.null_sentinel(),
@@ -233,8 +234,6 @@ def _cast(col: Column, to: Type, valid=None) -> Column:
             return Column(torch.round(scaled).to(torch.int64), n, to)
         raise NotImplementedError(f"cast {frm} -> {to}")
     if isinstance(frm, DecimalType):
-        if frm.uses_int128 and not to.is_floating:
-            _unported_wide(f"cast {frm} -> {to}")
         if to.is_floating:
             return Column((v.to(torch.float64) / (10 ** frm.scale))
                           .to(tdt), n, to)
@@ -269,6 +268,77 @@ def _cast(col: Column, to: Type, valid=None) -> Column:
         return Column(v != 0, n, to)
     if to.is_string and frm.is_string:
         return Column(v, n, to, col.dictionary)
+    raise NotImplementedError(f"cast {frm} -> {to}")
+
+
+def _wide_operand(col):
+    """(int128_op operand, decimal scale) of a wide column, a narrow
+    decimal or an integer column."""
+    if _is_wide(col):
+        return col.value_lanes, col.type.scale
+    scale = col.type.scale if isinstance(col.type, DecimalType) else 0
+    return col.values.to(torch.int64), scale
+
+
+def _wide_lanes(col, scale_to: int, valid=None):
+    """Column -> 128-bit limb lanes at scale_to (presto_tpu/expr/
+    compile.py:454; reference: UnscaledDecimal128Arithmetic.rescale).
+    Upscaling records an overflow on the valid rows; downscaling rounds
+    HALF_UP."""
+    from presto_tpu_torch.expr import errors as E
+    x, frm = _wide_operand(col)
+    if _is_wide(col) and scale_to == frm:
+        return x
+    lanes, err = I.int128_op("rescale", x, x_shift=scale_to - frm,
+                             valid=valid)
+    E.record_mask(err)
+    return lanes
+
+
+def _cast_wide(col, to: Type, valid=None):
+    """Casts touching the 128-bit limb representation
+    (presto_tpu/expr/compile.py:250)."""
+    from presto_tpu_torch.expr import errors as E
+
+    frm = col.type
+    dev = col.nulls.device
+    if _is_wide(col):
+        if to.is_floating:
+            img, _err = I.int128_op("to_double", col.value_lanes,
+                                    scale=frm.scale)
+            return Column(img.to(torch_dtype(to)), col.nulls, to)
+        if isinstance(to, DecimalType) and to.uses_int128:
+            return Decimal128Column(*_wide_lanes(col, to.scale, valid),
+                                    col.nulls, to)
+        if to.is_integer or isinstance(to, DecimalType):
+            # downscale to scale 0 (integers) or to.scale; the value must
+            # then fit the narrow representation, range-checked
+            target = to.scale if isinstance(to, DecimalType) else 0
+            info = torch.iinfo(torch_dtype(to))
+            v, err = I.int128_op("to_int64", col.value_lanes,
+                                 x_shift=target - frm.scale, valid=valid,
+                                 lo=info.min, hi=info.max)
+            E.record_mask(err)
+            return Column(v.to(torch_dtype(to)), col.nulls, to)
+        raise NotImplementedError(f"cast {frm} -> {to}")
+    if frm.name == "unknown":
+        z = torch.zeros(col.capacity, dtype=torch.int64, device=dev)
+        return Decimal128Column(z, z, z, z, torch.ones_like(col.nulls), to)
+    if frm.is_floating:
+        # double -> DECIMAL(38): floats carry 53 significant bits, so a
+        # float-space limb decomposition is exact wherever the input was
+        x = torch.round(col.values.to(torch.float64) * (10 ** to.scale))
+        l3 = torch.floor(x / 2.0 ** 96)
+        x = x - l3 * 2.0 ** 96
+        l2 = torch.floor(x / 2.0 ** 64)
+        x = x - l2 * 2.0 ** 64
+        l1 = torch.floor(x / 2.0 ** 32)
+        l0 = x - l1 * 2.0 ** 32
+        return Decimal128Column(*[a.to(torch.int64) for a in (l3, l2, l1, l0)],
+                                col.nulls, to)
+    if frm.is_integer or isinstance(frm, DecimalType):
+        return Decimal128Column(*_wide_lanes(col, to.scale, valid),
+                                col.nulls, to)
     raise NotImplementedError(f"cast {frm} -> {to}")
 
 
@@ -327,7 +397,14 @@ def _literal_column(e: Literal, cap: int, device) -> Column:
             return _const_column(None, t, cap, device, StringDict([]))
         return _const_column(0, t, cap, device, StringDict([e.value]))
     if isinstance(t, DecimalType) and t.uses_int128:
-        _unported_wide(f"literal {t}")
+        # decimal literals are stored UNSCALED in the Literal
+        if e.value is None:
+            z = torch.zeros(cap, dtype=torch.int64, device=device)
+            return Decimal128Column(z, z, z, z, torch.ones(
+                cap, dtype=torch.bool, device=device), t)
+        return Decimal128Column(
+            *I.from_python_int(int(e.value), (cap,), device),
+            torch.zeros(cap, dtype=torch.bool, device=device), t)
     return _const_column(e.value, t, cap, device)
 
 
@@ -405,12 +482,20 @@ _CMP = {
 
 
 def _is_wide(col) -> bool:
-    return isinstance(col.type, DecimalType) and col.type.uses_int128
+    return isinstance(col, Decimal128Column)
 
 
 def _compare(op: str, x: Column, y: Column) -> Column:
     if _is_wide(x) or _is_wide(y):
-        _unported_wide(f"comparison {x.type} {op} {y.type}")
+        # exact 128-bit comparison at the common scale
+        xo, xs = _wide_operand(x)
+        yo, ys = _wide_operand(y)
+        s = max(xs, ys)
+        sign, _err = I.int128_op("compare", xo, yo, x_shift=s - xs,
+                                 y_shift=s - ys)
+        v = {"eq": sign == 0, "ne": sign != 0, "lt": sign < 0,
+             "le": sign <= 0, "gt": sign > 0, "ge": sign >= 0}[op]
+        return _bool(v, x.nulls | y.nulls)
     if x.type.is_string and y.type.is_string:
         x, y = align_string_columns(x, y)
         return _bool(_CMP[op](x.values, y.values), x.nulls | y.nulls)
@@ -435,14 +520,13 @@ def _arith(op: str, e: Call, x: Column, y: Column, page: Page) -> Column:
     # checked, so eager evaluation skips building their mask
     valid = None if rt.is_floating else _valid_rows(page, x, y)
     wide_in = _is_wide(x) or _is_wide(y)
-    wide_out = isinstance(rt, DecimalType) and rt.uses_int128
-    # Until DECIMAL(38) is ported, a product of narrow operands typed
-    # DECIMAL(19..38) (bigint * 1.0 in TPC-DS q78 and q83) is held in
-    # int64, and a value beyond 64 bits raises NotImplementedError; such
-    # a column may only be cast to a float (a division typed DOUBLE).
-    if (wide_in and not rt.is_floating) or (
-            wide_out and (wide_in or op != "multiply")):
-        _unported_wide(f"{op} over {x.type}, {y.type}")
+    if isinstance(rt, DecimalType) and (rt.uses_int128 or wide_in):
+        return _arith_wide(op, rt, x, y, nulls, valid)
+    if wide_in:
+        # a non-decimal result (decimal division is typed DOUBLE): wide
+        # operands go through their float image
+        x = _cast_wide(x, DOUBLE) if _is_wide(x) else x
+        y = _cast_wide(y, DOUBLE) if _is_wide(y) else y
     if isinstance(rt, DecimalType):
         xs = x.type.scale if isinstance(x.type, DecimalType) else 0
         ys = y.type.scale if isinstance(y.type, DecimalType) else 0
@@ -450,7 +534,7 @@ def _arith(op: str, e: Call, x: Column, y: Column, page: Page) -> Column:
         yv = y.values.to(torch.int64)
         if op == "multiply":
             v = xv * yv
-            E.record(E.WIDE_BEYOND_INT64 if wide_out else E.OVF_DECIMAL,
+            E.record(E.OVF_DECIMAL,
                      torch.any(E.mul_overflows(xv, yv, v) & valid))
             return Column(
                 _rescale_decimal(v, xs + ys, rt.scale, valid), nulls, rt)
@@ -506,6 +590,36 @@ def _arith(op: str, e: Call, x: Column, y: Column, page: Page) -> Column:
     else:
         raise NotImplementedError(op)
     return Column(v, nulls, rt)
+
+
+def _arith_wide(op: str, rt, x, y, nulls, valid) -> Decimal128Column:
+    """DECIMAL arithmetic on the 128-bit limb lanes
+    (presto_tpu/expr/compile.py:581; reference:
+    UnscaledDecimal128Arithmetic.java add/subtract/multiply). Presto's
+    decimal type rules make multiply's result scale exactly xs + ys and
+    add/subtract's the larger input scale, so the only rescales are
+    upscales. Overflow past 2^127 or past 10^38-1 records DECIMAL
+    overflow; NULL rows get zero lanes."""
+    from presto_tpu_torch.expr import errors as E
+
+    if not isinstance(rt, DecimalType):
+        raise NotImplementedError(f"wide decimal {op} -> {rt}")
+    xo, xs = _wide_operand(x)
+    yo, ys = _wide_operand(y)
+    if op == "multiply":
+        if rt.scale != xs + ys:
+            raise NotImplementedError(
+                f"decimal multiply rescale {xs}+{ys}->{rt.scale}")
+        lanes, err = I.int128_op("multiply", xo, yo, valid=valid,
+                                 zero=nulls)
+    elif op in ("add", "subtract"):
+        lanes, err = I.int128_op(op, xo, yo, x_shift=rt.scale - xs,
+                                 y_shift=rt.scale - ys, valid=valid,
+                                 zero=nulls)
+    else:
+        raise NotImplementedError(f"DECIMAL(38) {op} (128-bit division)")
+    E.record_mask(err)
+    return Decimal128Column(*lanes, nulls, rt)
 
 
 def _dict_transform(col: Column, fn) -> Column:
@@ -634,7 +748,8 @@ def _call(e: Call, page: Page, ev) -> Column:
     if name == "negate":
         c = ev(e.args[0], page)
         if _is_wide(c):
-            _unported_wide("negate")
+            lanes, _err = I.int128_op("negate", c.value_lanes)
+            return Decimal128Column(*lanes, c.nulls, c.type)
         if c.type.is_integer:   # -MIN is not representable
             from presto_tpu_torch.expr import errors as E
             lo = torch.iinfo(c.values.dtype).min
@@ -644,7 +759,8 @@ def _call(e: Call, page: Page, ev) -> Column:
     if name == "abs":
         c = ev(e.args[0], page)
         if _is_wide(c):
-            _unported_wide("abs")
+            lanes, _err = I.int128_op("abs", c.value_lanes)
+            return Decimal128Column(*lanes, c.nulls, c.type)
         if c.type.is_integer:   # abs(MIN) is not representable
             from presto_tpu_torch.expr import errors as E
             lo = torch.iinfo(c.values.dtype).min

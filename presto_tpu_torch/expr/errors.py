@@ -31,8 +31,6 @@ OVF_ABS = 32
 OVF_SUM = 64
 OVF_CAST = 128
 OVF_DECIMAL = 256
-#: a DECIMAL(19..38) value that does not fit the int64 the port holds it in
-WIDE_BEYOND_INT64 = 512
 
 MESSAGES = {
     OVF_ADD: "bigint addition overflow",
@@ -61,8 +59,10 @@ class _Collector:
         self.flag: Optional[torch.Tensor] = None
 
     def record(self, code: int, any_flag: torch.Tensor) -> None:
-        t = any_flag.to(torch.int64) * code
-        self.flag = t if self.flag is None else (self.flag | t)
+        self.record_mask(any_flag.to(torch.int64) * code)
+
+    def record_mask(self, mask: torch.Tensor) -> None:
+        self.flag = mask if self.flag is None else (self.flag | mask)
 
     def combined(self, device) -> torch.Tensor:
         return (self.flag.to(device) if self.flag is not None
@@ -106,14 +106,21 @@ def record(code: int, any_flag) -> None:
         raise_for_mask(code)
 
 
+def record_mask(mask: torch.Tensor) -> None:
+    """`mask`: 0-d int64 tensor of ORed codes (a kernel's error word).
+    Inside a collector it joins the query's error lane; outside one it is
+    checked now (a host sync)."""
+    s = _stack()
+    if s:
+        s[-1].record_mask(mask)
+        return
+    raise_for_mask(int(mask))
+
+
 def raise_for_mask(mask: int) -> None:
     mask = int(mask)
     if not mask:
         return
-    if mask & WIDE_BEYOND_INT64:
-        raise NotImplementedError(
-            "a DECIMAL(19..38) value beyond 64 bits: the port holds such "
-            "values in int64 until DECIMAL(38) (data/int128.py) is ported")
     for code, msg in MESSAGES.items():
         if mask & code:
             raise ArithmeticOverflowError(msg)

@@ -38,7 +38,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "compact": {"compact_indices": [_P, _I64, _P, _P, _P, _P, _P]},
     "segment_reduce": {
         "segment_reduce": [_P, _I32, _I32, _P, _P, _P, _I64, _I64,
-                           _P, _P, _P, _P, _P, _P]},
+                           _P, _P, _P, _P, _P, _P],
+        "segment_sum128": [_P, _P, _P, _P, _I32, _P, _P, _P, _I64, _I64,
+                           _P, _P, _P]},
     "hash": {"hash_columns": [_P, _P, _P, _I32, _I64, _P, _P]},
     "join": {
         "join_probe": [_P, _I64, _P, _P, _I64, _P, _P, _P, _P, _I32, _I32,
@@ -51,6 +53,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "key_change": [_P, _I64, _P, _P, _P, _I32, _P, _P, _P, _I32, _I32,
                        _I32, _P, _P, _P]},
     "window": {"window_frame": [_P, _P, _P, _I64, _P]},
+    "int128": {"int128_op": [_P, _P]},
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -15,8 +15,13 @@ the JAX package:
   segments (`segment_reduce`, K3).
 
 Kinds: count_star, count, sum, avg, avg_partial, avg_final, min, max,
-bool_or, bool_and. HyperLogLog (approx_distinct), approx_percentile and
-the DECIMAL(38) kinds raise NotImplementedError: later slices.
+bool_or, bool_and, and the DECIMAL(38) kinds sum128 and avg128: four int64
+limb sums per group (K1's and K3's 128-bit sum modes) and a count, into a
+Decimal128Column whose exact value the host recombines. Min and max over
+DECIMAL(p>18) inputs are exact lexicographic reductions over the
+normalized limbs, in torch ops. HyperLogLog (approx_distinct),
+approx_percentile and the distributed merges sum128_merge/avg128_merge
+raise NotImplementedError: later slices.
 
 Capacity contract as in the JAX package: the output page has capacity
 `out_capacity`; the true group count is returned unclamped so the executor
@@ -31,7 +36,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from presto_tpu_torch.data.column import Column, Page, torch_dtype
+from presto_tpu_torch.data import int128 as I
+from presto_tpu_torch.data.column import (
+    Column, Decimal128Column, Page, torch_dtype,
+)
 from presto_tpu_torch.types import BIGINT, DOUBLE, Type
 
 
@@ -49,12 +57,15 @@ class AggSpec:
 
 
 _PORTED_KINDS = {"count_star", "count", "sum", "avg", "avg_partial",
-                 "avg_final", "min", "max", "bool_or", "bool_and"}
+                 "avg_final", "min", "max", "bool_or", "bool_and",
+                 "sum128", "avg128"}
+_WIDE_KINDS = ("sum128", "avg128", "count", "min", "max")
 
 _DIRECT_MAX_BINS = 64
 
 WANT_SUM = 1
 WANT_MINMAX = 2
+WANT_SUM128 = 4
 
 
 def _check_kinds(aggs: Sequence[AggSpec]) -> None:
@@ -65,13 +76,16 @@ def _check_kinds(aggs: Sequence[AggSpec]) -> None:
 
 
 def _agg_inputs(a: AggSpec, page: Page):
-    """(values, null-or-masked-out) for an aggregate input, unpermuted."""
+    """(values, null-or-masked-out) for an aggregate input, unpermuted. A
+    DECIMAL(p>18) input's values are its four limb lanes."""
     if a.field is not None:
         col = page.columns[a.field]
-        if not hasattr(col, "values"):
-            raise NotImplementedError(
-                f"{a.kind} over DECIMAL(38) input: later slice of the port")
-        vals = col.values
+        if isinstance(col, Decimal128Column):
+            if a.kind not in _WIDE_KINDS:
+                raise NotImplementedError(f"{a.kind} over DECIMAL(38) input")
+            vals = col.value_lanes
+        else:
+            vals = col.values
         nulls = col.nulls
     else:
         vals = torch.zeros(page.capacity, dtype=torch.int64,
@@ -84,9 +98,11 @@ def _agg_inputs(a: AggSpec, page: Page):
     return vals, nulls
 
 
-def _kernel_values(vals: torch.Tensor) -> torch.Tensor:
-    """Values in a dtype the kernels take (float64, int64, int32)."""
-    if vals.dtype in (torch.float64, torch.int64, torch.int32):
+def _kernel_values(vals):
+    """Values in a dtype the kernels take (float64, int64, int32); limb
+    lanes as they are."""
+    if isinstance(vals, tuple) or vals.dtype in (torch.float64, torch.int64,
+                                                  torch.int32):
         return vals
     if vals.is_floating_point():
         return vals.to(torch.float64)
@@ -100,7 +116,9 @@ def _kernel_values(vals: torch.Tensor) -> torch.Tensor:
 _DA_MAX_KEYS = 6
 _DA_MAX_INPUTS = 12
 _DA_SCRATCH_WORDS = 1 << 20
+_DA_SMEM_BYTES = 49152
 _DTYPE_CODES = {torch.float64: 0, torch.int64: 1, torch.int32: 2}
+_DT_LIMBS = 3
 
 
 class _DirectAggArgs(ctypes.Structure):
@@ -125,7 +143,21 @@ class _DirectAggArgs(ctypes.Structure):
         ("isum", ctypes.c_void_p),
         ("mn", ctypes.c_void_p),
         ("mx", ctypes.c_void_p),
+        ("in_limbs", (ctypes.c_void_p * 4) * _DA_MAX_INPUTS),
+        ("lsum", ctypes.c_void_p),
+        ("per_input", ctypes.c_int32),
     ]
+
+
+def _bin_codes(keys, domains, cap: int, dev) -> torch.Tensor:
+    """Each row's mixed-radix bin over the key codes (a NULL key takes the
+    extra bin `domain`), as the direct_agg kernel computes it."""
+    code = torch.zeros(cap, dtype=torch.int32, device=dev)
+    for (codes, knulls), dom in zip(keys, domains):
+        v = codes.clamp(0, dom - 1)
+        v = torch.where(knulls, dom, v)
+        code = code * (dom + 1) + v
+    return code
 
 
 def _direct_agg_plain(capacity, num_rows, keys, domains, inputs, mask):
@@ -135,20 +167,29 @@ def _direct_agg_plain(capacity, num_rows, keys, domains, inputs, mask):
     bins = 1
     for d in domains:
         bins *= d + 1
-    code = torch.zeros(cap, dtype=torch.int32, device=dev)
-    for (codes, knulls), dom in zip(keys, domains):
-        v = codes.clamp(0, dom - 1)
-        v = torch.where(knulls, dom, v)
-        code = code * (dom + 1) + v
+    code = _bin_codes(keys, domains, cap, dev)
     valid = torch.arange(cap, dtype=torch.int64, device=dev) < num_rows
     if mask is not None:
         valid = valid & mask
     masks = [valid & (code == b) for b in range(bins)]
     out = {"rows": torch.stack([m.sum(dtype=torch.int64) for m in masks])}
-    cnt, fsum, isum, mn, mx = [], [], [], [], []
+    cnt, fsum, isum, mn, mx, lsum = [], [], [], [], [], []
+    zero_b = torch.zeros(bins, dtype=torch.int64, device=dev)
     for vals, nulls, want in inputs:
         live = [m & ~nulls for m in masks] if nulls is not None else masks
         cnt.append(torch.stack([lv.sum(dtype=torch.int64) for lv in live]))
+        if want & WANT_SUM128:
+            lanes = vals if isinstance(vals, tuple) else I.from_int64(vals)
+            lsum.append(torch.stack([
+                torch.stack([torch.where(lv, x, 0).sum() for lv in live])
+                for x in lanes]))
+        else:
+            lsum.append(torch.stack([zero_b] * 4))
+        if isinstance(vals, tuple):             # limb lanes: counts only
+            for part in (isum, mn, mx):
+                part.append(zero_b)
+            fsum.append(zero_b.to(torch.float64))
+            continue
         is_f = vals.dtype == torch.float64
         if want & WANT_SUM:
             f64 = vals.to(torch.float64)
@@ -185,6 +226,8 @@ def _direct_agg_plain(capacity, num_rows, keys, domains, inputs, mask):
                         ("mn", mn), ("mx", mx)):
         out[name] = torch.stack(parts) if parts else torch.empty(
             (0, bins), dtype=empty.get(name, torch.int64), device=dev)
+    out["lsum"] = torch.stack(lsum) if lsum else torch.empty(
+        (0, 4, bins), dtype=torch.int64, device=dev)
     return out
 
 
@@ -199,15 +242,19 @@ def direct_agg(capacity: int, num_rows: torch.Tensor,
     capacity: rows in every column; num_rows: 0-d int64 (rows at or past
     it are padding); keys: per key (int32 codes, bool nulls); domains: per
     key the number of codes (a NULL key takes bin `domain`); inputs: per
-    input (values float64/int64/int32, bool nulls or None, want =
-    WANT_SUM | WANT_MINMAX); mask: bool fused filter mask or None.
+    input (values float64/int64/int32 or four int64 limb lanes, bool nulls
+    or None, want = WANT_SUM | WANT_MINMAX | WANT_SUM128; limb lanes take
+    WANT_SUM128 or nothing); mask: bool fused filter mask or None.
 
     Returns "rows" [bins] int64 (valid rows per bin) and, per input and
     bin, "cnt" (live rows), "fsum" (float64 sum), "isum" (int64 sum,
     wrapping; 0 for float inputs), "mn"/"mx" (8-byte words: float64 bits
-    for float64 inputs, int64 otherwise), each [inputs, bins]. On CPU
+    for float64 inputs, int64 otherwise), each [inputs, bins], and
+    "lsum" [inputs, 4, bins], the wrapping int64 sums of the inputs' limb
+    lanes l3..l0 (integer values decompose as int128.from_int64). On CPU
     tensors this is the plain version; on CUDA tensors it launches the
-    kernel, once per chunk of at most 12 inputs."""
+    kernel, once per chunk of at most 12 inputs (fewer where the chunk's
+    accumulators would not fit the kernel's shared memory)."""
     if len(keys) != len(domains) or len(keys) > _DA_MAX_KEYS:
         raise ValueError(f"direct_agg: at most {_DA_MAX_KEYS} keys, one "
                          f"domain each")
@@ -225,8 +272,15 @@ def direct_agg(capacity: int, num_rows: torch.Tensor,
         (n, torch.bool) for _c, n in keys] + [
         (m, torch.bool) for m in (mask,) if m is not None] + [
         (nl, torch.bool) for _v, nl, _w in inputs if nl is not None]
-    for v, _nl, _w in inputs:
-        if v.dtype not in _DTYPE_CODES:
+    for v, _nl, want in inputs:
+        if isinstance(v, tuple):
+            if len(v) != 4 or want & (WANT_SUM | WANT_MINMAX):
+                raise TypeError("direct_agg: limb inputs are four lanes and "
+                                "take WANT_SUM128 only")
+            columns.extend((x, torch.int64) for x in v)
+            continue
+        if v.dtype not in _DTYPE_CODES or (
+                want & WANT_SUM128 and v.dtype == torch.float64):
             raise TypeError(f"direct_agg: input dtype {v.dtype}")
         columns.append((v, v.dtype))
     for t, dt in columns:
@@ -252,9 +306,17 @@ def direct_agg(capacity: int, num_rows: torch.Tensor,
                                device=dev),
            "isum": torch.empty((n_in, bins), dtype=torch.int64, device=dev),
            "mn": torch.empty((n_in, bins), dtype=torch.int64, device=dev),
-           "mx": torch.empty((n_in, bins), dtype=torch.int64, device=dev)}
-    chunks = [list(range(i, min(i + _DA_MAX_INPUTS, n_in)))
-              for i in range(0, n_in, _DA_MAX_INPUTS)] or [[]]
+           "mx": torch.empty((n_in, bins), dtype=torch.int64, device=dev),
+           "lsum": torch.zeros((n_in, 4, bins), dtype=torch.int64,
+                               device=dev)}
+    # accumulators per input: 5, or 9 with the limb sums; a chunk's
+    # accumulators for one warp must fit the kernel's shared memory
+    wide = any(w & WANT_SUM128 for _v, _nl, w in inputs)
+    per_input = 9 if wide else 5
+    per_chunk = min(_DA_MAX_INPUTS,
+                    (_DA_SMEM_BYTES // (8 * bins) - 1) // per_input)
+    chunks = [list(range(i, min(i + per_chunk, n_in)))
+              for i in range(0, n_in, per_chunk)] or [[]]
     keep_alive = []
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -270,15 +332,23 @@ def direct_agg(capacity: int, num_rows: torch.Tensor,
                 a.key_nulls[k] = knulls.data_ptr()
                 a.key_domain[k] = dom
             a.num_inputs = len(chunk)
+            a.per_input = per_input
             for slot, j in enumerate(chunk):
                 vals, nulls, want = inputs[j]
-                vals = vals.contiguous()
                 nulls = nulls.contiguous() if nulls is not None else None
+                if isinstance(vals, tuple):
+                    vals = tuple(x.contiguous() for x in vals)
+                    for q, x in enumerate(vals):
+                        a.in_limbs[slot][q] = x.data_ptr()
+                    a.in_values[slot] = 0
+                    a.in_dtype[slot] = _DT_LIMBS
+                else:
+                    vals = vals.contiguous()
+                    a.in_values[slot] = vals.data_ptr()
+                    a.in_dtype[slot] = _DTYPE_CODES[vals.dtype]
                 keep_alive.append((vals, nulls))
-                a.in_values[slot] = vals.data_ptr()
                 a.in_nulls[slot] = nulls.data_ptr() if nulls is not None \
                     else 0
-                a.in_dtype[slot] = _DTYPE_CODES[vals.dtype]
                 a.in_want[slot] = want
             # a chunk's outputs are rows j0.. of the [inputs, bins] tensors
             j0 = chunk[0] if chunk else 0
@@ -286,15 +356,20 @@ def direct_agg(capacity: int, num_rows: torch.Tensor,
             for name in ("cnt", "fsum", "isum", "mn", "mx"):
                 t = out[name]
                 setattr(a, name, t.data_ptr() + j0 * bins * t.element_size())
+            a.lsum = out["lsum"].data_ptr() + j0 * 4 * bins * 8
             rc = lib.direct_agg(ctypes.byref(a),
                                 ctypes.c_void_p(scratch.data_ptr()),
                                 _DA_SCRATCH_WORDS, ctypes.c_void_p(stream))
             native.check(rc, "direct_agg", "direct_agg")
             direct_agg.launches += 1
+            if any(inputs[j][2] & WANT_SUM128 for j in chunk):
+                direct_agg.sum128_launches += 1
     return out
 
 
 direct_agg.launches = 0
+#: launches that summed 128-bit limbs (the DECIMAL(38) mode)
+direct_agg.sum128_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -342,7 +417,12 @@ def _input_plan(page: Page, aggs: Sequence[AggSpec]):
             per_agg.append((None, None))
             continue
         vals, nulls = _agg_inputs(a, page)
-        want = (WANT_MINMAX if a.kind in ("min", "max", "bool_or",
+        wide = isinstance(vals, tuple)
+        if wide and a.kind in ("min", "max"):
+            per_agg.append((None, None))    # torch ops, not the kernel
+            continue
+        want = (WANT_SUM128 if a.kind in ("sum128", "avg128") else
+                WANT_MINMAX if a.kind in ("min", "max", "bool_or",
                                           "bool_and") else
                 WANT_SUM if a.kind != "count" else 0)
         j = slot(("in", a.field, a.mask_field), vals, nulls, want)
@@ -406,16 +486,62 @@ def _direct_grouped_aggregate(page: Page, group_fields: Sequence[int],
         cols.append(widen(torch.where(knull, 0, key_code), c.type,
                           knull[take], c.dictionary))
 
+    def widen_wide(lane_bins, is_null_w, count_bins=None):
+        """Place per-bin limb sums [4, prod] (and counts) into an out_cap
+        Decimal128Column: NULL and padding rows hold zero lanes."""
+        nl = is_null_w | ~out_valid_w
+        pad = out_cap - width
+
+        def lane(bins_arr):
+            v = torch.where(nl, 0, bins_arr[take])
+            return torch.cat([v, v.new_zeros(pad)]) if pad > 0 else v
+        nulls = torch.cat([nl, nl.new_ones(pad)]) if pad > 0 else nl
+        return Decimal128Column(
+            *[lane(x) for x in lane_bins], nulls, t,
+            None if count_bins is None else lane(count_bins))
+
     false_w = torch.zeros(width, dtype=torch.bool, device=dev)
+    valid = None
     for a, (j, j2) in zip(aggs, per_agg):
         t = a.output_type
         kind = a.kind
         if kind == "count_star":
             cols.append(widen(counts, t, false_w))
             continue
+        if j is None:
+            # min/max over DECIMAL(p>18): narrow each bin's live mask lane
+            # by lane over the normalized limbs, most significant first
+            # (presto_tpu/ops/aggregate.py:317-340)
+            if valid is None:
+                valid = page.row_valid()
+                if row_mask is not None:
+                    valid = valid & row_mask
+                bin_code = _bin_codes(keys, domains, page.capacity, dev)
+            lanes, nulls = _agg_inputs(a, page)
+            live = [valid & (bin_code == b) & ~nulls for b in range(prod)]
+            n_per = torch.stack([lv.sum(dtype=torch.int64) for lv in live])
+            big = torch.iinfo(torch.int64).max
+            ident = big if kind == "min" else -big - 1
+            wins = []
+            for lane_v in I.normalize(lanes):
+                w = torch.stack([
+                    torch.where(m, lane_v, ident).amin() if kind == "min"
+                    else torch.where(m, lane_v, ident).amax()
+                    for m in live])
+                live = [m & (lane_v == w[b]) for b, m in enumerate(live)]
+                wins.append(w)
+            cols.append(widen_wide(wins, (n_per == 0)[take]))
+            continue
         n_per = r["cnt"][j]
+        if kind in ("sum128", "avg128"):
+            # four limb sums per bin; the exact value recombines on the
+            # host (Decimal128Column.value_at)
+            cols.append(widen_wide(r["lsum"][j], (n_per == 0)[take],
+                                   n_per if kind == "avg128" else None))
+            continue
         in_vals = inputs[j][0]
-        is_f = in_vals.dtype == torch.float64
+        is_f = not isinstance(in_vals, tuple) and \
+            in_vals.dtype == torch.float64
         if kind == "count":
             cols.append(widen(n_per, t, false_w))
         elif kind in ("sum", "avg", "avg_partial", "avg_final"):
@@ -494,6 +620,27 @@ def grouped_aggregate(page: Page, group_fields: Sequence[int],
 # the sorted (large-domain) path
 # ---------------------------------------------------------------------------
 
+def _wide_minmax_sorted(kind, lanes, nulls, flags, gvalid, starts, n,
+                        out_valid, t) -> Decimal128Column:
+    """min/max over DECIMAL(p>18) segments (presto_tpu/ops/aggregate.py
+    :655-677): sort the rows by (group, NULL last, normalized limbs) and
+    take each group's first row; lexicographic limb order is exact value
+    order, and max sorts the negated value."""
+    from presto_tpu_torch.ops.keys import lex_perm
+    norm = I.normalize(lanes)
+    if kind == "max":
+        norm = I.normalize(I.negate(norm))
+    gid = torch.cumsum((flags & gvalid).to(torch.int64), 0)
+    perm = lex_perm([gid, nulls.to(torch.int8), *norm])
+    idx = perm[starts.clamp(0, perm.shape[0] - 1)]
+    win = [x[idx] for x in norm]
+    if kind == "max":
+        win = list(I.negate(tuple(win)))
+    is_null = nulls[idx] | (n == 0) | ~out_valid
+    return Decimal128Column(*[torch.where(is_null, 0, w) for w in win],
+                            is_null, t)
+
+
 def _sorted_grouped_aggregate(page: Page, group_fields: Sequence[int],
                               aggs: Sequence[AggSpec], out_cap: int,
                               valid: torch.Tensor):
@@ -537,16 +684,17 @@ def _sorted_grouped_aggregate(page: Page, group_fields: Sequence[int],
         cols.append(sp.columns[f].gather(starts, out_valid))
     reduced: Dict[tuple, dict] = {}
     for a in aggs:
-        cols.extend(_eval_agg_sorted(a, sp, gvalid, starts, ends,
+        cols.extend(_eval_agg_sorted(a, sp, gvalid, flags, starts, ends,
                                      out_valid, reduced))
     return Page(tuple(cols), torch.clamp(num_groups, max=out_cap), ()), \
         num_groups
 
 
-def _eval_agg_sorted(a: AggSpec, sp: Page, gvalid, starts, ends,
+def _eval_agg_sorted(a: AggSpec, sp: Page, gvalid, flags, starts, ends,
                      out_valid, reduced: Dict[tuple, dict]):
-    """Evaluate one aggregate over contiguous sorted segments. `reduced`
-    memoizes segment reductions per input within one aggregation."""
+    """Evaluate one aggregate over contiguous sorted segments (`flags`:
+    the sorted rows' new-group flags). `reduced` memoizes segment
+    reductions per input within one aggregation."""
     from presto_tpu_torch.ops import scan as pscan
 
     t = a.output_type
@@ -578,8 +726,23 @@ def _eval_agg_sorted(a: AggSpec, sp: Page, gvalid, starts, ends,
     if kind == "count_star":
         return [out(ends - starts, zeros)]
     key = ("in", a.field, a.mask_field)
+    wide = isinstance(vals, tuple)
     if kind == "count":
-        return [out(seg(key, vals, ~nulls, 0)["cnt"], zeros)]
+        return [out(seg(key, vals[3] if wide else vals, ~nulls, 0)["cnt"],
+                    zeros)]
+    if kind in ("sum128", "avg128"):
+        # DECIMAL(38): four limb sums per segment (K3's 128-bit mode);
+        # the exact value recombines on the host
+        r = seg(("in128", a.field, a.mask_field), vals, ~nulls, WANT_SUM128)
+        n = r["cnt"]
+        is_null = (n == 0) | ~out_valid
+        return [Decimal128Column(
+            *[torch.where(is_null, 0, x) for x in r["lsum"]], is_null, t,
+            count=n if kind == "avg128" else None)]
+    if wide:    # min/max over DECIMAL(p>18)
+        return [_wide_minmax_sorted(kind, vals, nulls, flags, gvalid, starts,
+                                    seg(key, vals[3], ~nulls, 0)["cnt"],
+                                    out_valid, t)]
     if kind in ("sum", "avg", "avg_partial"):
         acc_f = t.is_floating or kind != "sum"
         r = seg(key, vals, ~nulls, WANT_SUM)

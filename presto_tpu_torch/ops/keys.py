@@ -20,7 +20,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from presto_tpu_torch.data.column import Column, Page
+from presto_tpu_torch.data.column import Column, Decimal128Column, Page
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +50,15 @@ def flush_subnormal(v: torch.Tensor) -> torch.Tensor:
 def _orderable_values(col: Column) -> torch.Tensor:
     """Per-type tensor whose ascending order == SQL ascending order.
     Strings are already codes into a sorted dictionary; float64
-    subnormals sort as 0.0, as in the JAX package on the CPU."""
+    subnormals sort as 0.0, as in the JAX package on the CPU. A
+    Decimal128Column orders by its float64 image (exact to 2^53; ORDER BY
+    uses `_orderable_lanes` for the exact order)."""
+    if isinstance(col, Decimal128Column):
+        img = sum(x.to(torch.float64) * float(2 ** s)
+                  for x, s in zip(col.value_lanes, (96, 64, 32, 0)))
+        if col.count is not None:
+            img = img / col.count.clamp(min=1).to(torch.float64)
+        return img
     v = col.values
     if v.dtype == torch.bool:
         return v.to(torch.int32)
@@ -60,8 +68,15 @@ def _orderable_values(col: Column) -> torch.Tensor:
 
 
 def _orderable_lanes(col: Column):
-    """Sort-key lanes, most-significant first (presto_tpu/ops/keys.py:57).
-    Without DECIMAL(38) columns in the port yet, one lane per column."""
+    """Sort-key lanes, most-significant first, whose lexicographic order
+    is SQL ascending order (presto_tpu/ops/keys.py:57). A Decimal128
+    value or sum sorts exactly by its carry-normalized limbs: the three low
+    limbs land in [0, 2^32) and sort as they are, the top limb carries the
+    sign. An average (count set) keeps the float64 image of sum / count,
+    as in the JAX package."""
+    if isinstance(col, Decimal128Column) and col.count is None:
+        from presto_tpu_torch.data.int128 import normalize
+        return list(normalize(col.value_lanes))
     return [_orderable_values(col)]
 
 
@@ -128,10 +143,13 @@ def sort_perm(page: Page, keys: Sequence[SortKey]) -> torch.Tensor:
     perm = torch.arange(cap, dtype=torch.int64, device=dev)
     for k in reversed(list(keys)):
         col = page.columns[k.field]
-        v = _orderable_values(col)[perm]
-        if not k.ascending:
-            v = descending(v)
-        perm = perm[_argsort(v)]
+        # multi-lane keys (Decimal128): least-significant lane first;
+        # a descending lane complements each limb, never negates it
+        for lane in reversed(_orderable_lanes(col)):
+            v = lane[perm]
+            if not k.ascending:
+                v = descending(v)
+            perm = perm[_argsort(v)]
         # null placement: stable second pass on the null bucket
         n = col.nulls[perm]
         null_key = (~n).to(torch.int32) if k.nulls_sort_first \

@@ -29,17 +29,21 @@ from presto_tpu_torch.data.column import compact_indices
 
 WANT_SUM = 1
 WANT_MINMAX = 2
+WANT_SUM128 = 4
 
 _DTYPE_CODES = {torch.float64: 0, torch.int64: 1, torch.int32: 2}
+_DT_LIMBS = 3
 
 
 def _segment_reduce_plain(values, live, starts, ends, want):
     """Plain PyTorch version of the segment_reduce kernel: rows are
     labelled with their segment and reduced with index_add_/scatter_reduce
     in row order."""
-    n = values.shape[0]
+    wide = isinstance(values, tuple)
+    ref = values[0] if wide else values
+    n = ref.shape[0]
     g = starts.shape[0]
-    dev = values.device
+    dev = ref.device
     s = starts.clamp(0, n)
     e = torch.maximum(ends.clamp(0, n), s)
     lengths = e - s
@@ -49,11 +53,18 @@ def _segment_reduce_plain(values, live, starts, ends, want):
     rows = (torch.repeat_interleave(s, lengths)
             + torch.arange(seg.shape[0], dtype=torch.int64, device=dev)
             - torch.repeat_interleave(offsets, lengths))
-    v = values[rows]
     keep = (live[rows] if live is not None
             else torch.ones(rows.shape[0], dtype=torch.bool, device=dev))
     out = {"cnt": torch.zeros(g, dtype=torch.int64, device=dev)
            .index_add_(0, seg, keep.to(torch.int64))}
+    if want & WANT_SUM128:
+        from presto_tpu_torch.data.int128 import from_int64
+        lanes = values if wide else from_int64(values)
+        out["lsum"] = torch.stack([
+            torch.zeros(g, dtype=torch.int64, device=dev).index_add_(
+                0, seg, torch.where(keep, x[rows], 0)) for x in lanes])
+        return out
+    v = values[rows]
     is_f = values.dtype == torch.float64
     if want & WANT_SUM:
         fv = torch.where(keep, v.to(torch.float64), 0.0)
@@ -101,19 +112,34 @@ def segment_reduce(values: torch.Tensor, live: Optional[torch.Tensor],
     WANT_SUM "fsum" (float64 sum) and, for integer values, "isum" (int64
     sum, wrapping); with WANT_MINMAX "min"/"max" (float64 for float64
     values, else int64; NaN sorts last). Values are float64, int64 or
-    int32. On CPU tensors this is the plain version; on CUDA tensors it
-    launches the kernel."""
-    if values.dim() != 1 or values.dtype not in _DTYPE_CODES:
+    int32. The 128-bit sum mode, want == WANT_SUM128, takes int64/int32
+    values or four int64 limb lanes (l3, l2, l1, l0) and returns "cnt" and
+    "lsum" [4, G], the wrapping int64 sums of each limb lane (integer
+    values decompose as int128.from_int64). On CPU tensors this is the
+    plain version; on CUDA tensors it launches the kernel."""
+    wide = isinstance(values, tuple)
+    if want & WANT_SUM128 and want != WANT_SUM128:
+        raise ValueError("segment_reduce: the 128-bit sum mode is alone")
+    if wide:
+        if len(values) != 4 or want != WANT_SUM128 or any(
+                x.dtype != torch.int64 or x.shape != values[0].shape
+                or x.dim() != 1 or x.device != values[0].device
+                for x in values):
+            raise TypeError("segment_reduce: limb values are four 1-d int64 "
+                            "lanes, in the 128-bit sum mode")
+    elif values.dim() != 1 or values.dtype not in _DTYPE_CODES or (
+            want & WANT_SUM128 and values.dtype == torch.float64):
         raise TypeError(f"segment_reduce: values must be 1-d float64, int64 "
                         f"or int32, got {values.dtype}")
+    ref = values[0] if wide else values
     if starts.dtype != torch.int64 or ends.dtype != torch.int64 \
             or starts.shape != ends.shape or starts.dim() != 1:
         raise TypeError("segment_reduce: starts/ends must be 1-d int64 of "
                         "one length")
     if live is not None and (live.dtype != torch.bool
-                             or live.shape != values.shape):
+                             or live.shape != ref.shape):
         raise TypeError("segment_reduce: live must be bool like values")
-    dev = values.device
+    dev = ref.device
     for t in (starts, ends) + ((live,) if live is not None else ()):
         if t.device != dev:
             raise ValueError("segment_reduce: tensors on different devices")
@@ -122,10 +148,12 @@ def segment_reduce(values: torch.Tensor, live: Optional[torch.Tensor],
     if dev.type != "cuda":
         raise RuntimeError(f"segment_reduce: no kernel for {dev}")
     from presto_tpu_torch import native
-    values = values.contiguous()
     live = live.contiguous() if live is not None else None
     starts, ends = starts.contiguous(), ends.contiguous()
     g = starts.shape[0]
+    if want == WANT_SUM128:
+        return _segment_sum128(values, live, starts, ends)
+    values = values.contiguous()
     is_f = values.dtype == torch.float64
     out = {"cnt": torch.empty(g, dtype=torch.int64, device=dev)}
     if want & WANT_SUM:
@@ -157,6 +185,37 @@ def segment_reduce(values: torch.Tensor, live: Optional[torch.Tensor],
 
 
 segment_reduce.launches = 0
+#: launches of the 128-bit sum mode (the DECIMAL(38) kinds)
+segment_reduce.sum128_launches = 0
+
+
+def _segment_sum128(values, live, starts, ends) -> dict:
+    """Launch K3's 128-bit sum mode (csrc/segment_reduce.cu
+    segment_sum128) on CUDA tensors."""
+    from presto_tpu_torch import native
+    wide = isinstance(values, tuple)
+    lanes = [x.contiguous() for x in values] if wide \
+        else [values.contiguous()]
+    dev, n, g = lanes[0].device, lanes[0].shape[0], starts.shape[0]
+    out = {"cnt": torch.empty(g, dtype=torch.int64, device=dev),
+           "lsum": torch.empty((4, g), dtype=torch.int64, device=dev)}
+    ptrs = [ctypes.c_void_p(x.data_ptr()) for x in lanes]
+    ptrs += [ctypes.c_void_p(0)] * (4 - len(ptrs))
+    lib = native.load("segment_reduce")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.segment_sum128(
+            *ptrs, _DT_LIMBS if wide else _DTYPE_CODES[lanes[0].dtype],
+            ctypes.c_void_p(live.data_ptr() if live is not None else 0),
+            ctypes.c_void_p(starts.data_ptr()),
+            ctypes.c_void_p(ends.data_ptr()), g, n,
+            ctypes.c_void_p(out["cnt"].data_ptr()),
+            ctypes.c_void_p(out["lsum"].data_ptr()),
+            ctypes.c_void_p(stream))
+    native.check(rc, "segment_sum128", "segment_reduce")
+    segment_reduce.launches += 1
+    segment_reduce.sum128_launches += 1
+    return out
 
 
 def segment_sums(vals: torch.Tensor, starts: torch.Tensor,

@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port's main path, on one GPU.
 
-    python3 profile_port.py [--out profile.json]
+    python3 profile_port.py [--out profile.json] [--only NAME,...]
 
 Runs chip_smoke.py's main-path queries (`main_queries()`: TPC-H q01, q06, the
-q18 aggregation block, q03, q04, q13, q18, q21 and q22 at SF1) and the
+q18 aggregation block, q03, q04, q13, q18, q21 and q22 at SF1), the
 breadth path's TPC-DS q51, q67 and q75 at SF1 and TPC-H running-window
 query at SF1 (`breadth_queries()`; that one returns 1.5M rows and is
 timed to its result page on the card, without the conversion to Python
-rows) through presto_tpu_torch's LocalEngine on the card: once cold
+rows) and the decimal path's TPC-H q01, q03, q06, q10 and q19 over SF1
+lineitem with DECIMAL(12,2) money columns (`decimal_queries()`, named
+dec_q01 ..; --only limits the run to the named queries) through
+presto_tpu_torch's LocalEngine on the card: once cold
 (column uploads, capacity retries), WARM times warm and timed, once warm
 under torch.profiler. Prints per query the median warm wall time,
 the device busy time (the union of kernel and copy intervals in the
-trace) beside the traced run's wall time, and the device time of the
-heaviest kernels; with --out, writes the same as JSON, with the device
-time of every kernel. Fails where there is no CUDA device.
+trace) beside the traced run's wall time, the device time by kind
+(sorts: cub radix sorts; gathers: torch's index kernels; hand-written:
+the __global__ functions of presto_tpu_torch/csrc, by source; other:
+every other kernel and copy) and of the heaviest kernels; with --out,
+writes the same as JSON, with the device time of every kernel. Fails
+where there is no CUDA device.
 """
 
 from __future__ import annotations
@@ -22,12 +28,14 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import sys
 import time
+from pathlib import Path
 
 from chip_smoke import SF, TPCDS_SF, breadth_queries, card_line, \
-    main_queries, run_query
+    decimal_connector, decimal_queries, main_queries, run_query
 
 TOP = 8        # heaviest device kernels listed per query
 WARM = 7       # timed warm runs per query (median reported)
@@ -47,6 +55,37 @@ def _busy_us(intervals) -> float:
     if cur_e is not None:
         total += cur_e - cur_s
     return total
+
+
+def _hand_written() -> dict:
+    """__global__ function name -> its csrc source (file stem)."""
+    csrc = Path(__file__).resolve().parent / "presto_tpu_torch" / "csrc"
+    out = {}
+    for path in csrc.glob("*.cu"):
+        for name in re.findall(r"__global__\s+void\s+(\w+)",
+                               path.read_text()):
+            out[name] = path.stem
+    return out
+
+
+def by_kind(kernels_ms: dict) -> dict:
+    """Device milliseconds by kind: sorts, gathers, each hand-written
+    source, other."""
+    hand = _hand_written()
+    out = {"sorts": 0.0, "gathers": 0.0, "other": 0.0}
+    for name, ms in kernels_ms.items():
+        fn = re.match(r"(?:void\s+)?(\w+)", name)
+        src = hand.get(fn.group(1)) if fn else None
+        if src is not None:
+            key = f"hand:{src}"
+        elif "RadixSort" in name:
+            key = "sorts"
+        elif "index_elementwise_kernel" in name:
+            key = "gathers"
+        else:
+            key = "other"
+        out[key] = out.get(key, 0.0) + ms
+    return out
 
 
 def profile_query(engine, sql: str, as_page: bool = False) -> dict:
@@ -81,12 +120,14 @@ def profile_query(engine, sql: str, as_page: bool = False) -> dict:
             "busy_share": busy_ms / traced_ms if traced_ms else None,
             "device_events": len(intervals),
             "top_kernels_ms": [(n, us / 1e3) for n, us in heavy],
+            "by_kind_ms": by_kind({n: us / 1e3 for n, us in by_name.items()}),
             "kernels_ms": {n: us / 1e3 for n, us in by_name.items()}}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write the result as JSON here")
+    ap.add_argument("--only", help="comma-separated query names")
     args = ap.parse_args()
 
     import torch
@@ -105,13 +146,20 @@ def main() -> int:
     breadth = breadth_queries(ds_engine, engine)
     runs += [(name, breadth[name][0], breadth[name][1], breadth[name][3])
              for name in BREADTH]
+    dec_engine = LocalEngine(decimal_connector(engine.connector))
+    runs += [(f"dec_{name}", dec_engine, sql, False)
+             for name, (sql, _ordered) in decimal_queries().items()]
+    if args.only:
+        names = set(args.only.split(","))
+        runs = [r for r in runs if r[0] in names]
     for name, eng, sql, as_page in runs:
         r = profile_query(eng, sql, as_page)
         result["queries"][name] = r
         print(f"{name}: warm wall median {r['wall_ms']:.2f} ms (min "
               f"{min(r['wall_ms_all']):.2f}), device busy "
               f"{r['device_busy_ms']:.2f} ms of {r['traced_wall_ms']:.2f} "
-              f"ms traced ({r['device_events']} device events)")
+              f"ms traced ({r['device_events']} device events); by kind "
+              + ", ".join(f"{k} {v:.3f}" for k, v in r["by_kind_ms"].items()))
         for kname, ms in r["top_kernels_ms"]:
             print(f"    {ms:9.3f} ms  {kname[:90]}")
     if args.out:

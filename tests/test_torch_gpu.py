@@ -417,3 +417,177 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
                     assert abs(x - y) <= RTOL * max(abs(y), 1.0)
                 else:
                     assert x == y
+
+
+# -- DECIMAL(38): K10 and the 128-bit sum modes of K1 and K3 ---------------
+
+def _wide_lanes_np(rng, n):
+    """Four int64 limb lanes of n values over +-(10^38-1) (log-uniform
+    magnitudes), the edge rows first: 0, +-1, +-(10^38-1), ties and
+    products around 2^127, then 2 x 9.9e37 and -2 x 9.9e37 held in
+    denormalized lanes (sums past 2^127)."""
+    edge = [0, 1, -1, 10 ** 38 - 1, -(10 ** 38 - 1), 15, -25, 2 ** 63,
+            -(2 ** 64), 10 ** 19 + 5]
+    digits = rng.integers(1, 39, n)
+    vals = edge + [int(rng.integers(0, 10 ** 18)) * 10 ** 20
+                   + int(rng.integers(0, 10 ** 18)) for _ in
+                   range(n - len(edge))]
+    vals = [v % 10 ** int(d) if i >= len(edge) else v
+            for i, (v, d) in enumerate(zip(vals, digits))]
+    vals = [-v if s and i >= len(edge) else v for i, (v, s) in
+            enumerate(zip(vals, rng.integers(0, 2, n)))]
+    m = 0xFFFFFFFF
+    lanes = [np.array([v >> 96 for v in vals], np.int64),
+             np.array([(v >> 64) & m for v in vals], np.int64),
+             np.array([(v >> 32) & m for v in vals], np.int64),
+             np.array([v & m for v in vals], np.int64)]
+    big = 99 * 10 ** 36
+    for i, v in ((n - 2, 2 * big), (n - 1, -2 * big)):
+        half = [v // 2 >> 96, (v // 2 >> 64) & m, (v // 2 >> 32) & m,
+                v // 2 & m]
+        for q in range(4):
+            lanes[q][i] = 2 * half[q]
+    return [torch.from_numpy(x) for x in lanes]
+
+
+def _exact(lanes, rows=None):
+    """Exact python ints of lanes (any representation)."""
+    from presto_tpu_torch.data.int128 import to_python_int
+    host = [x.cpu().numpy() for x in lanes]
+    idx = range(len(host[0])) if rows is None else rows
+    return [to_python_int(host, i) for i in idx]
+
+
+@pytest.mark.parametrize("op,xw,yw,xsh,ysh", [
+    ("rescale", True, None, 4, 0), ("rescale", True, None, -3, 0),
+    ("rescale", False, None, 20, 0), ("rescale", True, None, -21, 0),
+    ("add", True, True, 0, 2), ("subtract", True, False, 2, 0),
+    ("multiply", False, False, 0, 0), ("multiply", True, False, 0, 0),
+    ("multiply", True, True, 0, 0), ("compare", True, True, 0, 1),
+    ("compare", False, True, 3, 0), ("negate", True, None, 0, 0),
+    ("abs", True, None, 0, 0), ("to_double", True, None, 0, 0),
+    ("to_int64", True, None, -2, 0)])
+def test_int128_kernel_matches_plain(cuda, op, xw, yw, xsh, ysh):
+    from presto_tpu_torch.data import int128 as I
+    rng = np.random.default_rng(11)
+    n = 200_003
+    wide_x, wide_y = _wide_lanes_np(rng, n), _wide_lanes_np(rng, n)
+    narrow = torch.from_numpy(rng.integers(-2 ** 62, 2 ** 62, n))
+    if op == "multiply" and yw:
+        # one factor of at most 19 digits: products on both sides of 2^127
+        wide_y = list(I.from_int64(narrow))
+    x = tuple(wide_x) if xw else narrow
+    y = None if yw is None else (tuple(wide_y) if yw else narrow.flip(0))
+    valid = torch.from_numpy(rng.random(n) < 0.9)
+    zero = torch.from_numpy(rng.random(n) < 0.05)
+    kw = dict(x_shift=xsh, y_shift=ysh, valid=valid, zero=zero, scale=3,
+              lo=-2 ** 40, hi=2 ** 40, row_flags=True)
+    p_out, p_err, p_rows = I.int128_op(op, x, y, **kw)
+
+    def on(v):
+        return tuple(t.to(cuda) for t in v) if isinstance(v, tuple) \
+            else v.to(cuda)
+    before = I.int128_op.launches
+    g_out, g_err, g_rows = I.int128_op(
+        op, on(x), None if y is None else on(y), **{
+            **kw, "valid": valid.to(cuda), "zero": zero.to(cuda)})
+    assert I.int128_op.launches == before + 1
+    _same(g_rows, p_rows)
+    _same(g_err, p_err)
+    ok = np.flatnonzero(p_rows.numpy() == 0)
+    if isinstance(p_out, tuple):
+        assert _exact(g_out, ok) == _exact(p_out, ok)
+        if op in ("negate", "abs", "rescale") and g_out[0].is_cuda:
+            # the kernel writes normalized limbs
+            norm = I.normalize(tuple(t.cpu() for t in g_out))
+            _same(torch.stack(norm), torch.stack([t.cpu() for t in g_out]))
+    elif op == "to_double":
+        _close(g_out, p_out)
+    else:
+        _same(g_out.cpu()[ok], p_out[ok])
+
+
+def test_direct_agg_sum128_mode_matches_plain(cuda):
+    rng = np.random.default_rng(12)
+    cap, n = 1 << 20, 1_000_003
+    keys = [(torch.from_numpy(rng.integers(0, 5, cap).astype(np.int32)),
+             torch.from_numpy(rng.random(cap) < 0.1))]
+    lanes = _wide_lanes_np(rng, cap)
+    inputs = [
+        (tuple(lanes), torch.from_numpy(rng.random(cap) < 0.1),
+         A.WANT_SUM128),
+        (torch.from_numpy(rng.integers(-2 ** 62, 2 ** 62, cap)),
+         torch.from_numpy(rng.random(cap) < 0.2),
+         A.WANT_SUM128 | A.WANT_SUM | A.WANT_MINMAX),
+        (torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, cap)
+                          .astype(np.int32)), None, A.WANT_SUM128),
+        (torch.from_numpy(rng.normal(0, 1, cap)), None, A.WANT_SUM)]
+    inputs = inputs * 4                 # 16 inputs: more than one chunk
+    mask = torch.from_numpy(rng.random(cap) < 0.8)
+    args = (cap, torch.tensor(n), keys, [5], inputs, mask)
+    plain = A.direct_agg(*args)
+    before = (A.direct_agg.launches, A.direct_agg.sum128_launches)
+    got = A.direct_agg(
+        cap, args[1].to(cuda), [(c.to(cuda), nl.to(cuda)) for c, nl in keys],
+        [5], [(tuple(t.to(cuda) for t in v) if isinstance(v, tuple)
+               else v.to(cuda), None if nl is None else nl.to(cuda), w)
+              for v, nl, w in inputs], mask.to(cuda))
+    launches = A.direct_agg.launches - before[0]
+    assert launches >= 2
+    assert A.direct_agg.sum128_launches - before[1] == launches
+    for name in ("rows", "cnt", "isum", "lsum"):
+        _same(got[name], plain[name])
+    _close(got["fsum"], plain["fsum"])
+    # min/max only where an input asked for them
+    mm = [j for j, (_v, _nl, w) in enumerate(inputs) if w & A.WANT_MINMAX]
+    for name in ("mn", "mx"):
+        _same(got[name][mm], plain[name][mm])
+
+
+def test_segment_sum128_mode_matches_plain(cuda):
+    rng = np.random.default_rng(13)
+    n = 300_001
+    lengths = rng.integers(0, 40, 20_000)
+    ends = np.minimum(np.cumsum(lengths), n)
+    starts = torch.from_numpy(np.maximum(ends - lengths, 0))
+    ends = torch.from_numpy(ends)
+    live = torch.from_numpy(rng.random(n) < 0.9)
+    for vals in (tuple(_wide_lanes_np(rng, n)),
+                 torch.from_numpy(rng.integers(-2 ** 62, 2 ** 62, n)),
+                 torch.from_numpy(rng.integers(-9, 9, n).astype(np.int32))):
+        plain = S.segment_reduce(vals, live, starts, ends, S.WANT_SUM128)
+        before = S.segment_reduce.sum128_launches
+        got = S.segment_reduce(
+            tuple(t.to(cuda) for t in vals) if isinstance(vals, tuple)
+            else vals.to(cuda), live.to(cuda), starts.to(cuda),
+            ends.to(cuda), S.WANT_SUM128)
+        assert S.segment_reduce.sum128_launches == before + 1
+        _same(got["cnt"], plain["cnt"])
+        _same(got["lsum"], plain["lsum"])
+
+
+def test_spec_typed_tpch_on_the_card_matches_the_cpu(cuda):
+    """TPC-H q01, q03, q06, q10 and q19 over lineitem with DECIMAL(12,2)
+    money columns, and sums of 2 x 9.9e37, exactly equal on both
+    devices."""
+    from pathlib import Path
+    from presto_tpu_torch.connectors import MemoryConnector, TpchConnector
+    from presto_tpu_torch.connectors.tpch import decimal_lineitem
+    from presto_tpu_torch.exec.engine import LocalEngine
+    ns: dict = {}
+    exec(compile((Path(__file__).parent / "tpch_queries.py").read_text(),
+                 "tpch_queries.py", "exec"), ns)
+    mem = MemoryConnector(fallback=TpchConnector(0.01))
+    mem.register(decimal_lineitem(0.01))
+    mem.create("carry", [("g", T.BIGINT), ("x", T.DecimalType(38, 0))])
+    big = 99 * 10 ** 36
+    mem.append_rows("carry", [(1, big), (1, big), (2, -big), (2, -big),
+                              (3, big), (3, -1)])
+    gpu, cpu = LocalEngine(mem), LocalEngine(mem, device="cpu")
+    sqls = [ns["QUERIES"][q] for q in (1, 3, 6, 10, 19)] + [
+        "select g, sum(x), avg(x) from carry group by g order by g",
+        "select sum(x * 1) from carry where g = 1"]
+    for sql in sqls:
+        got = gpu.execute_sql(sql)
+        assert got == cpu.execute_sql(sql) and got
+    assert gpu.execute_sql(sqls[5])[0][1] == 2 * big

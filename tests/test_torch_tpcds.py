@@ -78,15 +78,20 @@ def test_tpcds_query_matches_sqlite(qnum, port, sqlite_db):
 
 
 def test_wide_decimal_product_beyond_int64_raises(port):
-    """bigint * 1.0 is typed DECIMAL(20,1); the port holds it in int64
-    until DECIMAL(38) is ported, and a product beyond 64 bits raises
-    NotImplementedError instead of wrapping."""
-    rows = port.execute_sql(
-        "select d_date_sk * 1.0 / 2 from date_dim where d_date_sk = 2415022")
-    assert rows == [(2415022 * 1.0 / 2,)]
-    with pytest.raises(NotImplementedError, match="beyond 64 bits"):
-        port.execute_sql("select (d_date_sk + 922337203685477000) * 1.0 / 2 "
-                         "from date_dim where d_date_sk = 2415022")
+    """bigint * 1.0 is typed DECIMAL(20,1) (TPC-DS q78 and q83). The port
+    once held that product in int64 and raised beyond 64 bits; it now
+    holds it in 128-bit limb lanes, so the product beyond 64 bits no longer
+    raises and both queries return the JAX engine's values."""
+    from presto_tpu.exec import LocalEngine as RefEngine
+    ref = RefEngine(RefTpcds(SF))
+    for sql in (
+            "select d_date_sk * 1.0 / 2 from date_dim "
+            "where d_date_sk = 2415022",
+            "select (d_date_sk + 922337203685477000) * 1.0 / 2 "
+            "from date_dim where d_date_sk = 2415022"):
+        expected = ref.execute_sql(sql)
+        assert port.execute_sql(sql) == expected
+    assert expected == [((2415022 + 922337203685477000) * 10 / 20,)]
 
 
 def test_sqlite_bridge_is_the_tpch_full_copy_on_tpcds():
