@@ -7,11 +7,15 @@ Phases, each fatal on failure, each printing its seconds:
   1. the card's name and power limit (nvidia-smi); no CUDA device -> exit 2;
   2. build every kernel of the port from presto_tpu_torch/csrc with nvcc
      (one nvcc per source, all started together);
-  3. generate the TPC-H SF1 and TPC-DS SF1 tables on the host; each
-     kernel (K1 direct_agg, K2 compact_indices, K3 segment_reduce, K4
-     hash_columns, K5 join_probe, K6 join_expand, K7 segmented_scan, K8
-     key_change_flags, K9 window_frame, K10 int128_op, and the 128-bit sum
-     modes of K1 and K3) at the shapes SF1 gives it on the main path
+  3. generate the TPC-H SF1 and TPC-DS SF1 tables on the host, and the
+     nested orders table (1.5M orders whose arrays hold the 6.0M
+     lineitems); each kernel (K1 direct_agg, K2 compact_indices, K3
+     segment_reduce, K4 hash_columns, K5 join_probe, K6 join_expand, K7
+     segmented_scan, K8 key_change_flags, K9 window_frame, K10 int128_op,
+     the 128-bit sum modes of K1 and K3, and K11 unnest_expand on the
+     nested orders' l_partkeys and l_returned with the ordinality, at the
+     capacity the executor gives that unnest) at the shapes SF1 gives it
+     on the main path
      (K1-K3 on seeded numpy data; K4-K6 on q13's join of customer with
      orders; K7 on TPC-DS q51's largest window input and on orders
      partitioned by o_custkey; K8 and K9 on that orders page; K10 and the
@@ -49,16 +53,27 @@ Phases, each fatal on failure, each printing its seconds:
         cold run, the engine on the CPU and, for q01 and q06, numpy int64
         arithmetic; K10 and the 128-bit modes of K1 and K3 must have been
         launched here;
+     d. the nested path: the four UNNEST queries of
+        tests/test_torch_unnest.py (NESTED_ORDERS_QUERIES) over
+        orders_nested (connectors/tpch.nested_orders at SF1, built from
+        the generator's numpy arrays, in a MemoryConnector falling back to
+        TpchConnector(1.0)), each cold and warm on the card; the rows held
+        exactly against the cold run, the engine on the CPU, and the flat
+        query over orders and lineitem on the card (numpy counts for the
+        count query); K11 must have been launched here;
   5. all 22 TPC-H queries at SF 0.01 and all 99 TPC-DS queries at SF
-     0.002 on the card, cold and warm, and the window and grouping-set
+     0.002 on the card, cold and warm, the window and grouping-set
      queries of tests/test_window_outer.py and tests/test_grouping_sets.py
-     at TPC-H SF 0.01, the rows of both runs held against sqlite over the
-     same generated tables (presto_tpu_torch/testing/sqlite_oracle.py);
-     every kernel must have been launched here too.
+     at TPC-H SF 0.01, and the seven engine queries of
+     tests/test_unnest_nested.py over its docs table, the rows of both
+     runs held against sqlite over the same generated tables
+     (presto_tpu_torch/testing/sqlite_oracle.py; for the docs table, that
+     file's flattened sqlite tables); every kernel must have been
+     launched here too.
 
 The JSON kernel report is printed two lines before the end, then the
 card's name and power limit, then {"ok": true, "device": {...}} as the
-last line; each kernel's `launches` there is its count over the three
+last line; each kernel's `launches` there is its count over the four
 main paths of phase 4. Imports nothing of JAX or presto_tpu: the query lists
 of the test files are read from their source with `ast`.
 """
@@ -133,6 +148,28 @@ def breadth_sqlite_queries() -> dict:
     for name, sql, exp in g["CASES"]:
         out[f"grouping-{name}"] = (sql, exp)
     return out
+
+def nested_queries() -> dict:
+    """Phase 4d's queries, name -> (SQL, its flat twin or None for the
+    numpy count), from tests/test_torch_unnest.py."""
+    return _literal_lists("test_torch_unnest", (
+        "NESTED_ORDERS_QUERIES",))["NESTED_ORDERS_QUERIES"]
+
+
+def unnest_oracle_db():
+    """tests/test_unnest_nested.py's `oracle_db`: sqlite holding the
+    flattened forms of its docs table (the function's source, run without
+    its module, which imports the JAX package)."""
+    import sqlite3
+    tree = ast.parse((TESTS / "test_unnest_nested.py").read_text())
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+              and n.name == "oracle_db")
+    fn.decorator_list = []
+    ns = {"sqlite3": sqlite3}
+    exec(compile(ast.Module(body=[fn], type_ignores=[]),
+                 "test_unnest_nested.py", "exec"), ns)
+    return ns["oracle_db"]()
+
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 RTOL_SUM = 1e-9
@@ -862,6 +899,69 @@ def kernel_join_expand(conn, dev, repeat):
     return {"name": "join_expand", "route": "cuda",
             "source": "presto_tpu_torch/csrc/join.cu",
             "replaces": "presto_tpu/ops/join.py:237",
+            "max_abs_err": 0.0,
+            "ms": cuda_time_ms(kernel, repeat),
+            "plain_ms": cuda_time_ms(plain, repeat),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "library_ms": cuda_time_ms(library, repeat)}
+
+
+def nested_counts(table) -> list:
+    """The count query of phase 4d in numpy: the sum over rows of the
+    longer of l_partkeys and l_returned, of len(l_partkeys) and of
+    len(l_returned), a NULL array counted as 0."""
+    pk, ret = table.arrays["l_partkeys"], table.arrays["l_returned"]
+    a = np.where(pk.nulls, 0, pk.lengths).astype(np.int64)
+    b = np.where(ret.nulls, 0, ret.lengths).astype(np.int64)
+    return [(int(np.maximum(a, b).sum()), int(a.sum()), int(b.sum()))]
+
+
+def kernel_unnest_expand(table, dev, repeat):
+    """K11 at phase 4d's shape: orders_nested's l_partkeys and l_returned
+    (1.5M rows; l_returned empty where an order has no returned line and
+    NULL where o_orderkey % 97 = 0) with the ordinality, at the capacity
+    the executor gives that unnest (the bucket of 4x the page's)."""
+    import torch
+    from presto_tpu_torch.data.column import bucket_capacity
+    from presto_tpu_torch.ops import unnest as U
+    page = table.page(columns=["l_partkeys", "l_returned"], device=dev)
+    pk, ret = page.columns
+    out_cap = bucket_capacity(min(page.capacity * 4, 2**26))
+    args = ([pk.starts, ret.starts], [pk.lengths, ret.lengths],
+            [pk.nulls, ret.nulls], page.num_rows, out_cap, True)
+
+    def kernel():
+        return U.unnest_expand(*args)
+
+    def plain():
+        return U._unnest_expand_plain(*args)
+
+    got, want = kernel(), plain()
+    for g, w in zip(got, want):
+        if not exact(g, w):
+            fail("unnest_expand differs from the plain version")
+    total = int(got[-1])
+    if total != nested_counts(table)[0][0]:
+        fail(f"unnest_expand's total {total} differs from numpy's")
+    print(f"unnest_expand at phase 4d's shape: {total} slots of "
+          f"{page.capacity} rows in a capacity of {out_cap}", flush=True)
+    rowlen = torch.maximum(torch.where(pk.nulls, 0, pk.lengths),
+                           torch.where(ret.nulls, 0, ret.lengths)).long()
+    rows = torch.arange(page.capacity, device=dev)
+
+    def library():
+        # the parent of each slot, the one lane a library call gives
+        torch.repeat_interleave(rows, rowlen, output_size=total)
+
+    # per live row and channel its start, length (4 B each) and null
+    # flag read (rows past num_rows are never read); per slot its parent
+    # (8 B), its flag, per channel an element index (8 B) and a flag, and
+    # the ordinality (8 B) written
+    nbytes = int(page.num_rows) * 2 * 9 + out_cap * (8 + 1 + 2 * 9 + 8)
+    return {"name": "unnest_expand", "route": "cuda",
+            "source": "presto_tpu_torch/csrc/unnest.cu",
+            "replaces": "presto_tpu/ops/unnest.py:27",
             "max_abs_err": 0.0,
             "ms": cuda_time_ms(kernel, repeat),
             "plain_ms": cuda_time_ms(plain, repeat),
@@ -1687,6 +1787,94 @@ def decimal_path(conn, counters) -> dict:
     return launches
 
 
+def nested_connector(conn, table):
+    """A MemoryConnector serving orders_nested (`table`), every other
+    table from `conn` (a TpchConnector)."""
+    from presto_tpu_torch.connectors import MemoryConnector
+    mem = MemoryConnector(fallback=conn)
+    mem.register(table)
+    return mem
+
+
+def nested_path(conn, table, counters) -> dict:
+    """Phase 4d: the UNNEST queries over orders_nested at SF1, cold and
+    warm on the card, with the kernels' launch counts set to 0 just before
+    and read just after; the warm rows held exactly against the cold ones,
+    the engine on the CPU, and the flat query on the card (numpy for the
+    count query). K11 must have been launched."""
+    from presto_tpu_torch.exec.engine import LocalEngine
+
+    mem = nested_connector(conn, table)
+    queries = nested_queries()
+    gpu = LocalEngine(mem)
+    if gpu.device.type != "cuda":
+        fail(f"the engine chose {gpu.device}, not the card")
+    rows, walls, per_query, launches = _run_queries(
+        gpu, {name: (sql, True) for name, (sql, _f) in queries.items()},
+        counters, "nested path", ["unnest_expand"])
+    cpu = LocalEngine(mem, device="cpu")
+    names = [k.__name__ for k in counters]
+    for name, (sql, flat) in queries.items():
+        cold, warm = rows[name]
+        if cold != warm:
+            fail(f"{name} nested: card cold rows differ from warm rows")
+        t = time.perf_counter()
+        want = cpu.execute_sql(sql)
+        cpu_s = time.perf_counter() - t
+        if warm != want:
+            fail(f"{name} nested: card rows differ from the CPU's")
+        twin = gpu.execute_sql(flat) if flat else nested_counts(table)
+        if warm != twin or not warm:
+            fail(f"{name} nested: card rows differ from the "
+                 f"{'flat query' if flat else 'numpy counts'}: "
+                 f"{warm[:2]} != {twin[:2]}")
+        print(f"{name} nested: {len(warm)} rows equal the CPU's and the "
+              f"{'flat query' if flat else 'numpy counts'}; card wall cold "
+              f"{walls[name][0] * 1e3:.1f} ms, warm "
+              f"{walls[name][1] * 1e3:.1f} ms; CPU {cpu_s:.2f} s; launches "
+              f"per run {names} cold {per_query[name][0]} warm "
+              f"{per_query[name][1]}", flush=True)
+    return launches
+
+
+def docs_phase(counters) -> None:
+    """The seven engine queries of tests/test_unnest_nested.py over its
+    docs table (tests/test_torch_unnest.py DOCS_*), on the card cold and
+    warm, against sqlite over that file's flattened tables; the two
+    without a flat form (a constant UNNEST, the nested columns selected
+    verbatim) against their literal rows."""
+    from presto_tpu_torch.connectors import MemoryConnector
+    from presto_tpu_torch.exec.engine import LocalEngine
+    from presto_tpu_torch.types import parse_type
+
+    lits = _literal_lists("test_torch_unnest", (
+        "DOCS_QUERIES", "DOCS_ROWS", "DOCS_SCHEMA"))
+    db = unnest_oracle_db()
+    mem = MemoryConnector()
+    mem.create("docs", [(c, parse_type(t)) for c, t in lits["DOCS_SCHEMA"]])
+    mem.append_rows("docs", lits["DOCS_ROWS"])
+    engine = LocalEngine(mem)
+    queries = lits["DOCS_QUERIES"]
+    rows, walls, _per_query, launches = _run_queries(
+        engine, {name: (sql, True) for name, (sql, _f) in queries.items()},
+        counters, "docs phase", ["unnest_expand"])
+    for name, (sql, flat) in queries.items():
+        if flat is not None:
+            expected = [tuple(r) for r in db.execute(flat).fetchall()]
+        elif name == "standalone":
+            expected = [(1,), (2,), (3,)]
+        else:
+            expected = sorted(lits["DOCS_ROWS"], key=lambda r: r[0])
+        for run, got in zip(("cold", "warm"), rows[name]):
+            if got != expected:
+                fail(f"docs {name} card ({run}): {got} != {expected}")
+        print(f"docs {name}: {len(rows[name][1])} rows equal "
+              f"{'sqlite' if flat else 'the literal rows'}; card wall cold "
+              f"{walls[name][0] * 1e3:.1f} ms, warm "
+              f"{walls[name][1] * 1e3:.1f} ms", flush=True)
+    print(f"docs launches: {launches}", flush=True)
+
+
 def sqlite_phase(counters) -> None:
     """All 22 TPC-H queries and the window and grouping-set queries of
     the test files at SQLITE_SF, and all 99 TPC-DS queries at
@@ -1770,7 +1958,9 @@ def main() -> int:
     from presto_tpu_torch.ops.aggregate import direct_agg
     from presto_tpu_torch.ops.join import join_expand, join_probe
     from presto_tpu_torch.ops.keys import hash_columns, key_change_flags
+    from presto_tpu_torch.connectors.tpch import nested_orders
     from presto_tpu_torch.ops.scan import segment_reduce, segmented_scan
+    from presto_tpu_torch.ops.unnest import unnest_expand
     from presto_tpu_torch.ops.window import window_frame
 
     t_start = time.perf_counter()
@@ -1804,6 +1994,11 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s "
           f"({ds_conn.table('store_sales').num_rows} store_sales rows)",
           flush=True)
+    t0 = time.perf_counter()
+    nested = nested_orders(SF)
+    print(f"orders_nested at SF{SF}: built in "
+          f"{time.perf_counter() - t0:.1f} s ({nested.num_rows} rows, "
+          f"{nested_counts(nested)[0][1]} array elements)", flush=True)
 
     rng = np.random.default_rng(SEED)
     ds_sql, _ = tpcds_queries()
@@ -1819,7 +2014,8 @@ def main() -> int:
               kernel_window_frame(conn, dev, REPEAT),
               kernel_int128(rng, dev, REPEAT),
               kernel_direct_agg_sum128(rng, dev, REPEAT),
-              kernel_segment_sum128(rng, dev, REPEAT)]
+              kernel_segment_sum128(rng, dev, REPEAT),
+              kernel_unnest_expand(nested, dev, REPEAT)]
     del q51_calls
     torch_op_rows(conn, ds_conn, dev, REPEAT)
     torch.cuda.synchronize()
@@ -1852,12 +2048,22 @@ def main() -> int:
     print(f"phase 4c: decimal path in {time.perf_counter() - t0:.1f} s; "
           f"launches {decimal}; torch-op stage calls {calls.counts}",
           flush=True)
+    nested_counters = [unnest_expand] + counters
+    calls.reset()
+    t0 = time.perf_counter()
+    unnest = nested_path(conn, nested, nested_counters)
+    print(f"phase 4d: nested path in {time.perf_counter() - t0:.1f} s; "
+          f"launches {unnest}; torch-op stage calls {calls.counts}",
+          flush=True)
+    del nested
     for r in report:
         r["launches"] = (launches.get(r["name"], 0)
                          + breadth.get(r["name"], 0)
-                         + decimal.get(r["name"], 0))
+                         + decimal.get(r["name"], 0)
+                         + unnest.get(r["name"], 0))
     t0 = time.perf_counter()
     sqlite_phase(counters)
+    docs_phase(nested_counters)
     print(f"phase 5: sqlite comparisons in {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s",

@@ -10,8 +10,11 @@ through one engine connector).
 Ported: create, append_rows (python rows, decimals exact), register (a
 host table served as it is) and the fallback reads. DECIMAL(p>18)
 columns hold python-int unscaled values and scan as Decimal128Column limb
-lanes (connectors/tpch.HostTable.page). Drop, split slices, nested
-types, staged INSERT moves, row-slice views, table versions and the
+lanes (connectors/tpch.HostTable.page). ARRAY/MAP/ROW columns take python
+values (lists, dicts, tuples, None), held as numpy lanes
+(data/column.NestedArrays) laid out as the JAX package's from_pylist
+lays them out, and scan as NestedColumns. Drop, split
+slices, staged INSERT moves, row-slice views, table versions and the
 stream watermarks are later slices.
 """
 
@@ -24,7 +27,7 @@ import numpy as np
 from presto_tpu_torch.connectors.base import SplitSource
 from presto_tpu_torch.connectors.tpch import HostTable
 from presto_tpu_torch.data.column import (
-    StringDict, merge_string_dicts, unscale_decimal,
+    NestedArrays, StringDict, merge_string_dicts, unscale_decimal,
 )
 from presto_tpu_torch.types import Type
 
@@ -78,9 +81,10 @@ class MemoryConnector(SplitSource):
         for c, t in schema:
             types[c] = t
             if t.name in ("array", "map", "row"):
-                raise NotImplementedError(
-                    f"column type {t}: later slice of the port")
-            if t.is_decimal and t.uses_int128:
+                # numpy row lanes and children; page() builds
+                # NestedColumns
+                arrays[c] = NestedArrays.from_pylist([], t)
+            elif t.is_decimal and t.uses_int128:
                 # python-int unscaled values (exact 38-digit range);
                 # page() builds Decimal128Column limb lanes
                 arrays[c] = np.zeros(0, object)
@@ -113,6 +117,12 @@ class MemoryConnector(SplitSource):
                 c, np.zeros(t.num_rows, dtype=bool))[:t.num_rows]
             new_nulls[c] = np.concatenate(
                 [old_null, np.asarray([v is None for v in vals], bool)])
+            if typ.name in ("array", "map", "row"):
+                # the new rows laid out on their own, then appended with
+                # their starts shifted past the old entries
+                new_arrays[c] = t.arrays[c][:t.num_rows].concat(
+                    NestedArrays.from_pylist(vals, typ), typ)
+                continue
             if typ.is_string:
                 # one table-wide sorted dictionary, existing codes remapped
                 new_words, new_codes = StringDict.build(

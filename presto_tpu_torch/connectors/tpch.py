@@ -30,12 +30,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from presto_tpu_torch.data.column import (
-    Column, Decimal128Column, Page, StringDict, bucket_capacity,
-    resolve_device, unscale_array,
+    Column, Decimal128Column, NestedArrays, Page, StringDict,
+    bucket_capacity, resolve_device, unscale_array,
 )
 from presto_tpu_torch.expr.compile import days_from_civil
 from presto_tpu_torch.types import (
-    BIGINT, DATE, DOUBLE, INTEGER, VARCHAR, DecimalType, Type,
+    BIGINT, DATE, DOUBLE, INTEGER, VARCHAR, ArrayType, DecimalType, MapType,
+    Type,
 )
 
 # ---------------------------------------------------------------------------
@@ -183,7 +184,8 @@ class HostTable:
     stored as int32 codes) + shared StringDicts. `page()` uploads a
     column-pruned, bucket-padded device Page. `nulls` is optional (the
     TPC fixtures are null-free; written tables — connectors/memory.py —
-    carry real null masks)."""
+    carry real null masks). An ARRAY/MAP/ROW column is held as a
+    data/column.NestedArrays."""
     name: str
     num_rows: int
     arrays: Dict[str, np.ndarray]
@@ -234,9 +236,11 @@ class HostTable:
             if col is None:
                 t = self.types[c]
                 if t.name in ("array", "map", "row"):
-                    raise NotImplementedError(
-                        f"column type {t}: later slice of the port")
-                if getattr(t, "uses_int128", False):
+                    # data/column.NestedArrays: numpy row lanes and
+                    # children
+                    col = self.arrays[c][:self.num_rows].column(
+                        t, capacity=cap, device=dev)
+                elif getattr(t, "uses_int128", False):
                     # DECIMAL(p>18) at rest: python-int unscaled values
                     # -> four 32-bit limb lanes (exact 38-digit range)
                     col = Decimal128Column.from_unscaled_ints(
@@ -489,6 +493,74 @@ def decimal_lineitem(scale_factor: float) -> HostTable:
         arrays[c] = unscale_array(src.arrays[c][:src.num_rows], 2)
         types[c] = DecimalType(12, 2)
     return HostTable("lineitem", src.num_rows, arrays, types, src.dicts)
+
+
+#: the nested orders table of `nested_orders`
+NESTED_ORDERS_SCHEMA: List[Tuple[str, Type]] = [
+    ("o_orderkey", BIGINT), ("o_orderpriority", VARCHAR),
+    ("o_orderdate", DATE), ("l_partkeys", ArrayType(BIGINT)),
+    ("l_shipmodes", ArrayType(VARCHAR)), ("l_qty", MapType(BIGINT, DOUBLE)),
+    ("l_returned", ArrayType(BIGINT)),
+]
+
+
+def nested_orders(scale_factor: float) -> HostTable:
+    """`orders_nested`: the generated orders with their lineitems folded
+    into nested columns, built from the generator's numpy arrays (no
+    python objects), in `l_linenumber` order within each order:
+
+    - l_partkeys ARRAY(BIGINT) and l_shipmodes ARRAY(VARCHAR), one element
+      per lineitem (the shipmodes keep lineitem's dictionary);
+    - l_qty MAP(BIGINT, DOUBLE), linenumber to l_quantity;
+    - l_returned ARRAY(BIGINT), the linenumbers whose l_returnflag is 'R':
+      empty where there are none, NULL where o_orderkey % 97 = 0.
+
+    The layout is the one from_pylist gives the same python values.
+    Serve it through a MemoryConnector (`register`) whose fallback is
+    TpchConnector(scale_factor)."""
+    orders = _gen_table("orders", scale_factor)
+    li = _gen_table("lineitem", scale_factor)
+    n, m = orders.num_rows, li.num_rows
+    okey = orders.arrays["o_orderkey"][:n]
+    perm = np.lexsort((li.arrays["l_linenumber"][:m],
+                       li.arrays["l_orderkey"][:m]))
+    l_okey = li.arrays["l_orderkey"][:m][perm]
+    lineno = li.arrays["l_linenumber"][:m][perm].astype(np.int64)
+    starts = np.searchsorted(l_okey, okey, "left")
+    lengths = np.searchsorted(l_okey, okey, "right") - starts
+    not_null = np.zeros(n, dtype=bool)
+
+    def child(values, words=None):
+        return (values, np.zeros(len(values), dtype=bool), words)
+
+    def lineitems(*children):
+        return NestedArrays(starts.astype(np.int32),
+                            lengths.astype(np.int32), not_null, children)
+    r_code = li.dicts["l_returnflag"].words.index("R") \
+        if "R" in li.dicts["l_returnflag"].words else -1
+    null_ret = okey % 97 == 0
+    ret = li.arrays["l_returnflag"][:m][perm] == r_code
+    ret &= ~np.isin(l_okey, okey[null_ret])
+    r_okey = l_okey[ret]
+    r_starts = np.searchsorted(r_okey, okey, "left")
+    r_lengths = np.searchsorted(r_okey, okey, "right") - r_starts
+    arrays = {
+        "o_orderkey": okey,
+        "o_orderpriority": orders.arrays["o_orderpriority"][:n],
+        "o_orderdate": orders.arrays["o_orderdate"][:n],
+        "l_partkeys": lineitems(child(li.arrays["l_partkey"][:m][perm])),
+        "l_shipmodes": lineitems(child(
+            li.arrays["l_shipmode"][:m][perm],
+            li.dicts["l_shipmode"].words)),
+        "l_qty": lineitems(child(lineno),
+                           child(li.arrays["l_quantity"][:m][perm])),
+        "l_returned": NestedArrays(
+            r_starts.astype(np.int32), r_lengths.astype(np.int32),
+            null_ret, (child(lineno[ret]),)),
+    }
+    return HostTable("orders_nested", n, arrays,
+                     dict(NESTED_ORDERS_SCHEMA),
+                     {"o_orderpriority": orders.dicts["o_orderpriority"]})
 
 
 from presto_tpu_torch.connectors.base import SplitSource

@@ -348,6 +348,320 @@ class Decimal128Column:
 
 
 @dataclasses.dataclass
+class NestedColumn:
+    """ARRAY/MAP/ROW column (presto_tpu/data/column.py:380): per row a
+    (start, length) slice into flat child columns, so a row gather or a
+    filter never rewrites the child buffers.
+
+    ARRAY: children = (elements,); MAP: children = (keys, values), one
+    entry pair per map entry; ROW: one child per field, aligned 1:1 with
+    the parent rows (starts are the identity, lengths 1). Operators other
+    than UNNEST only carry the column along (gathers, compaction,
+    results)."""
+    starts: torch.Tensor         # [capacity] int32 into children
+    lengths: torch.Tensor        # [capacity] int32 (entries per row)
+    nulls: torch.Tensor          # [capacity] bool, True = NULL row
+    children: tuple              # Column / Decimal128Column / NestedColumn
+    type: Type                   # ArrayType | MapType | RowType
+
+    @property
+    def capacity(self) -> int:
+        return self.starts.shape[0]
+
+    @property
+    def dictionary(self):
+        return None
+
+    def gather(self, idx: torch.Tensor, valid=None) -> "NestedColumn":
+        """Gather rows (indices clamped into range); rows where valid is
+        False become NULL with start 0 and length 0. Starts are absolute
+        child positions, so the children never move."""
+        idx = idx.long().clamp(0, max(self.capacity - 1, 0))
+        starts = self.starts[idx]
+        lengths = self.lengths[idx]
+        nulls = self.nulls[idx]
+        if valid is not None:
+            starts = torch.where(valid, starts, 0)
+            lengths = torch.where(valid, lengths, 0)
+            nulls = nulls | ~valid
+        return NestedColumn(starts, lengths, nulls, self.children,
+                            self.type)
+
+    def to_numpy(self, num_rows: Optional[int] = None):
+        """(lengths, nulls), the shape of Column.to_numpy, for callers
+        that need validity only; values come from value_at."""
+        v, n = self.lengths, self.nulls
+        if num_rows is not None:
+            v, n = v[:num_rows], n[:num_rows]
+        return v.cpu().numpy(), n.cpu().numpy()
+
+    # -- construction -----------------------------------------------------
+    @staticmethod
+    def from_pylist(vals, type: Type, capacity: Optional[int] = None,
+                    device=None) -> "NestedColumn":
+        """From python values: lists (ARRAY), dicts (MAP), tuples (ROW)
+        or None, laid out as the JAX package's from_pylist (:439) lays
+        them out."""
+        return NestedArrays.from_pylist(vals, type).column(
+            type, capacity=capacity, device=device)
+
+    @staticmethod
+    def from_numpy(starts, lengths, nulls, children, type: Type,
+                   capacity: Optional[int] = None,
+                   device=None) -> "NestedColumn":
+        """From the numpy form of a nested column: row lanes `starts`,
+        `lengths`, `nulls` and per child its numpy form as
+        page_from_numpy takes a column, `(values, nulls, dictionary words
+        or None)`, or a nested child's own `(starts, lengths, nulls,
+        children)`. Rows past the lanes' length up to `capacity` are
+        NULL. A child keeps its length's bucket as its capacity (a ROW's
+        fields the row capacity)."""
+        n = len(nulls)
+        cap = capacity if capacity is not None else bucket_capacity(n)
+        row = type.name == "row"
+
+        def lane(a, fill, dt):
+            out = np.array(fill, dtype=dt)
+            a = np.asarray(a, dtype=dt)[:cap]
+            out[:len(a)] = a
+            return out
+        if row:
+            child_types = type.field_types
+        elif type.name == "map":
+            child_types = (type.key, type.value)
+        else:
+            child_types = (type.element,)
+        cols = []
+        for form, ct in zip(children, child_types):
+            ccap = cap if row else bucket_capacity(max(_form_len(form), 1))
+            cols.append(_column_from_numpy(form, ct, ccap, device))
+        # padding rows are NULL; a ROW's keep its identity layout (start
+        # i, length 1), as from_pylist gives them
+        return NestedColumn._of(
+            lane(starts, np.arange(cap) if row else np.zeros(cap), np.int32),
+            lane(lengths, np.ones(cap) if row else np.zeros(cap), np.int32),
+            lane(nulls, np.ones(cap), np.bool_), tuple(cols), type, device)
+
+    @staticmethod
+    def _of(starts, lengths, nulls, children, type, device):
+        dev = resolve_device(device)
+        return NestedColumn(torch.from_numpy(starts).to(dev),
+                            torch.from_numpy(lengths).to(dev),
+                            torch.from_numpy(nulls).to(dev), children, type)
+
+    # -- host access ------------------------------------------------------
+    def _host(self):
+        """The row lanes on the host, memoized: (starts, lengths,
+        nulls)."""
+        cached = getattr(self, "_host_cache", None)
+        if cached is None:
+            cached = tuple(x.cpu().numpy()
+                           for x in (self.starts, self.lengths, self.nulls))
+            object.__setattr__(self, "_host_cache", cached)
+        return cached
+
+    def value_at(self, i: int):
+        """Python value of row i (presto_tpu/data/column.py:479)."""
+        starts, lengths, nulls = self._host()
+        if bool(nulls[i]):
+            return None
+        s = int(starts[i])
+        if self.type.name == "row":
+            return tuple(_pyvalue(c, s) for c in self.children)
+        ln = int(lengths[i])
+        if self.type.name == "map":
+            return {_pyvalue(self.children[0], j):
+                    _pyvalue(self.children[1], j)
+                    for j in range(s, s + ln)}
+        return [_pyvalue(self.children[0], j) for j in range(s, s + ln)]
+
+
+def _column_from_pylist(vals, t: Type, capacity: int, device=None):
+    """Python values -> the column of type t that holds them
+    (presto_tpu/data/column.py:495)."""
+    return _column_from_numpy(_form_from_pylist(vals, t), t, capacity,
+                              device)
+
+
+def _form_from_pylist(vals, t: Type):
+    """Python values -> the numpy form (see page_from_numpy) of the column
+    of type t that holds them: `(values, nulls, dictionary words or
+    None)`, or a nested column's `(starts, lengths, nulls, children)`.
+    String values are dictionary codes; NULLs hold 0 (a DECIMAL(p>18)
+    NULL holds None)."""
+    if t.name in ("array", "map", "row"):
+        return NestedArrays.from_pylist(vals, t).form()
+    nulls = np.array([v is None for v in vals], dtype=bool)
+    if t.is_string:
+        d, codes = StringDict.build(["" if v is None else v for v in vals])
+        return codes, nulls, list(d.words)
+    if isinstance(t, DecimalType) and t.uses_int128:
+        ints = np.empty(len(vals), object)
+        for i, v in enumerate(vals):
+            ints[i] = None if v is None else unscale_decimal(v, t.scale)
+        return ints, nulls, None
+    if isinstance(t, DecimalType):
+        # exact unscaling: a Decimal never round-trips through float64
+        filled = np.array([0 if v is None else unscale_decimal(v, t.scale)
+                           for v in vals], dtype=np.int64)
+    else:
+        filled = np.array([0 if v is None else v for v in vals])
+    return np.asarray(filled, dtype=t.dtype), nulls, None
+
+
+def _form_len(form) -> int:
+    """The number of entries of a column's numpy form."""
+    return len(form[2] if len(form) == 4 else form[1])
+
+
+def _concat_forms(a, b, t: Type):
+    """Two numpy forms of type t, a's entries then b's: strings merge
+    their dictionaries (codes remapped), nested forms shift b's starts."""
+    if t.name in ("array", "map", "row"):
+        return NestedArrays(*a).concat(NestedArrays(*b), t).form()
+    (va, na, wa), (vb, nb, wb) = a, b
+    if t.is_string:
+        union, (ra, rb) = merge_string_dicts([StringDict(wa or []),
+                                              StringDict(wb or [])])
+        va = ra[va] if len(va) else np.zeros(0, np.int32)
+        vb = rb[vb] if len(vb) else np.zeros(0, np.int32)
+        return np.concatenate([va, vb]), np.concatenate([na, nb]), \
+            list(union.words)
+    return np.concatenate([va, vb]), np.concatenate([na, nb]), None
+
+
+def _column_from_numpy(form, t: Type, capacity: int, device=None):
+    """One column's numpy form (see page_from_numpy) -> its column."""
+    if t.name in ("array", "map", "row"):
+        return NestedColumn.from_numpy(*form, t, capacity=capacity,
+                                       device=device)
+    vals, nulls, words = form
+    nulls = np.asarray(nulls, dtype=bool)
+    if isinstance(t, DecimalType) and t.uses_int128:
+        if isinstance(vals, tuple) and len(vals) == 4:
+            pad = max(capacity - len(nulls), 0)
+            return Decimal128Column.from_numpy_lanes(
+                [np.pad(np.asarray(x)[:capacity], (0, pad)) for x in vals],
+                np.pad(nulls[:capacity], (0, pad), constant_values=True), t,
+                device=device)
+        return Decimal128Column.from_unscaled_ints(
+            list(vals), t, nulls=nulls, capacity=capacity, device=device)
+    d = StringDict(words) if words is not None else None
+    return Column.from_numpy(np.asarray(vals)[:capacity], t,
+                             nulls=nulls[:capacity], dictionary=d,
+                             capacity=capacity, device=device)
+
+
+def _pyvalue(col, i: int):
+    """One position of a child column as a python value
+    (presto_tpu/data/column.py:512)."""
+    if isinstance(col, (NestedColumn, Decimal128Column)):
+        return col.value_at(i)
+    v, nl = _host_lanes(col)
+    if nl[i]:
+        return None
+    if col.type.is_string:
+        return (col.dictionary[int(v[i])]
+                if col.dictionary is not None else int(v[i]))
+    if isinstance(col.type, DecimalType):
+        return scale_down_decimal(int(v[i]), col.type.scale)
+    if col.type.name == "boolean":
+        return bool(v[i])
+    if col.type.is_floating:
+        return float(v[i])
+    return int(v[i])
+
+
+def _host_lanes(col: Column):
+    """A child column's (values, nulls) on the host, memoized on the
+    column: value_at reads one child position per element."""
+    cached = getattr(col, "_host_cache", None)
+    if cached is None:
+        cached = col.to_numpy()
+        object.__setattr__(col, "_host_cache", cached)
+    return cached
+
+
+@dataclasses.dataclass
+class NestedArrays:
+    """A nested table column at rest in numpy: the row lanes `starts`,
+    `lengths` and `nulls`, and the children in their numpy form (see
+    NestedColumn.from_numpy). Slicing selects rows and shares the
+    children, as a HostTable's row slices share their buffers."""
+    starts: np.ndarray
+    lengths: np.ndarray
+    nulls: np.ndarray
+    children: tuple
+
+    def __len__(self) -> int:
+        return len(self.nulls)
+
+    def __getitem__(self, rows: slice) -> "NestedArrays":
+        return NestedArrays(self.starts[rows], self.lengths[rows],
+                            self.nulls[rows], self.children)
+
+    @staticmethod
+    def from_pylist(vals, type: Type) -> "NestedArrays":
+        """From python values: lists (ARRAY), dicts (MAP), tuples (ROW)
+        or None, laid out as the JAX package's from_pylist (:439) lays
+        them out: each row's entries follow the previous row's (a NULL
+        row starts where the next would, with length 0); a ROW's fields
+        align 1:1 with the rows."""
+        n = len(vals)
+        nulls = np.array([v is None for v in vals], dtype=bool)
+        if type.name == "row":
+            fields = tuple(
+                _form_from_pylist([None if v is None else v[i]
+                                   for v in vals], ft)
+                for i, ft in enumerate(type.field_types))
+            return NestedArrays(np.arange(n, dtype=np.int32),
+                                np.ones(n, np.int32), nulls, fields)
+        lengths = np.zeros(n, np.int32)
+        starts = np.zeros(n, np.int32)
+        flat: list = []
+        for i, v in enumerate(vals):
+            starts[i] = len(flat)
+            if v is None:
+                continue
+            items = list(v.items()) if type.name == "map" else list(v)
+            lengths[i] = len(items)
+            flat.extend(items)
+        if type.name == "map":
+            children = (_form_from_pylist([k for k, _v in flat], type.key),
+                        _form_from_pylist([v for _k, v in flat],
+                                          type.value))
+        else:
+            children = (_form_from_pylist(flat, type.element),)
+        return NestedArrays(starts, lengths, nulls, children)
+
+    def form(self) -> tuple:
+        return self.starts, self.lengths, self.nulls, self.children
+
+    def concat(self, other: "NestedArrays", type: Type) -> "NestedArrays":
+        """self's rows then other's, other's starts shifted past self's
+        child entries (the children are concatenated, string
+        dictionaries merged)."""
+        shift = _form_len(self.children[0]) if self.children else 0
+        child_types = (type.field_types if type.name == "row" else
+                       (type.key, type.value) if type.name == "map" else
+                       (type.element,))
+        return NestedArrays(
+            np.concatenate([self.starts,
+                            np.asarray(other.starts, np.int64) + shift]
+                           ).astype(np.int32),
+            np.concatenate([self.lengths, other.lengths]).astype(np.int32),
+            np.concatenate([self.nulls, other.nulls]),
+            tuple(_concat_forms(a, b, ct) for a, b, ct in
+                  zip(self.children, other.children, child_types)))
+
+    def column(self, type: Type, capacity: Optional[int] = None,
+               device=None) -> NestedColumn:
+        return NestedColumn.from_numpy(self.starts, self.lengths,
+                                       self.nulls, self.children, type,
+                                       capacity=capacity, device=device)
+
+
+@dataclasses.dataclass
 class Page:
     columns: Tuple[Column, ...]
     num_rows: torch.Tensor       # 0-d int64 on the page's device
@@ -382,8 +696,8 @@ class Page:
         n = int(self.num_rows)
         cols = []
         for c in self.columns:
-            v, nl = (None, None) if isinstance(c, Decimal128Column) \
-                else c.to_numpy(n)
+            v, nl = (None, None) if isinstance(
+                c, (Decimal128Column, NestedColumn)) else c.to_numpy(n)
             cols.append((c, v, nl))
         rows: List[tuple] = []
         for i in range(n):
@@ -417,33 +731,17 @@ def page_from_numpy(columns, types: Sequence[Type], names: Sequence[str] = (),
     `Column.to_numpy` plus `StringDict.words` give them. A DECIMAL(p>18)
     column's values are its four numpy limb lanes (l3, l2, l1, l0), as the
     JAX Decimal128Column holds them, or a sequence of python-int unscaled
-    values (None for NULL). `num_rows` defaults to the nulls' length;
-    `capacity` to its bucket."""
-    cols = []
-    n = num_rows if num_rows is not None else (
-        len(columns[0][1]) if columns else 0)
-    cap = capacity if capacity is not None else bucket_capacity(
-        max(n, len(columns[0][1]) if columns else 0))
-    for (vals, nulls, words), t in zip(columns, types):
-        if isinstance(t, DecimalType) and t.uses_int128:
-            nulls = np.asarray(nulls, dtype=bool)
-            if isinstance(vals, tuple) and len(vals) == 4:
-                pad = cap - len(nulls)
-                cols.append(Decimal128Column.from_numpy_lanes(
-                    [np.pad(np.asarray(x)[:cap], (0, max(pad, 0)))
-                     for x in vals],
-                    np.pad(nulls[:cap], (0, max(pad, 0)),
-                           constant_values=True), t, device=device))
-            else:
-                cols.append(Decimal128Column.from_unscaled_ints(
-                    list(vals), t, nulls=nulls, capacity=cap,
-                    device=device))
-            continue
-        d = StringDict(words) if words is not None else None
-        cols.append(Column.from_numpy(np.asarray(vals)[:cap], t,
-                                      nulls=np.asarray(nulls)[:cap],
-                                      dictionary=d, capacity=cap,
-                                      device=device))
+    values (None for NULL). An ARRAY/MAP/ROW column is
+    `(starts, lengths, nulls, children)`, the JAX NestedColumn's lanes,
+    with each child in this same numpy form. `num_rows` defaults to the
+    nulls' length; `capacity` to its bucket."""
+    def nulls_of(form):
+        return form[2] if len(form) == 4 else form[1]
+    n0 = len(nulls_of(columns[0])) if columns else 0
+    n = num_rows if num_rows is not None else n0
+    cap = capacity if capacity is not None else bucket_capacity(max(n, n0))
+    cols = [_column_from_numpy(form, t, cap, device)
+            for form, t in zip(columns, types)]
     return Page.from_columns(cols, n, names, device=device)
 
 

@@ -23,6 +23,8 @@ node is evaluated eagerly in the same order and with the same operators:
   input dictionaries, so a warm run does no host merge;
 - Window appends one column per window function (ops/window.py, kernels
   K7, K8 and K9);
+- Unnest flattens ARRAY/MAP columns into rows (ops/unnest.py, kernel
+  K11), at a capacity watched like an expansion join's;
 - Sort / TopN / Limit / Output as in ops/sort.py.
 
 Scalar subqueries (uncorrelated) are executed first and replaced by
@@ -35,8 +37,9 @@ duplicate counts and the checked-arithmetic error lane are read in ONE
 host sync at the end of the plan, and an overflow (or a duplicate build
 key under a merge join, watched under the negated node id) re-runs the
 plan at larger learned capacities (kept per plan for the executor's
-lifetime). Other node types (unnest, exchanges and remote sources,
-table writers) raise NotImplementedError: later slices of the port. So
+lifetime); an unnest's output capacity is learned the same way. Other
+node types (exchanges and remote sources, table writers) raise
+NotImplementedError: later slices of the port. So
 do the three join cases the JAX executor does not implement either (a
 residual filter on a FULL join, a FULL join and a LEFT join with a
 residual filter whose build keys repeat).
@@ -63,12 +66,13 @@ from presto_tpu_torch.ops.aggregate import grouped_aggregate
 from presto_tpu_torch.ops.join import hash_join, merge_join
 from presto_tpu_torch.ops.mark_distinct import mark_distinct
 from presto_tpu_torch.ops.sort import limit_page, sort_page, top_n
+from presto_tpu_torch.ops.unnest import unnest_page
 from presto_tpu_torch.ops.window import window_page
 from presto_tpu_torch.plan.nodes import (
     AggregationNode, AssignUniqueIdNode, FilterNode, GroupIdNode, JoinNode,
     JoinType, LimitNode, MarkDistinctNode, OutputNode, PlanNode,
     ProjectNode, SortNode, TableScanNode, TopNNode, UnionAllNode,
-    ValuesNode, WindowNode,
+    UnnestNode, ValuesNode, WindowNode,
 )
 
 
@@ -297,6 +301,22 @@ class Executor:
             if isinstance(node, UnionAllNode):
                 return union_all_pages([run(s) for s in node.sources], node,
                                        merged_dict)
+            if isinstance(node, UnnestNode):
+                # presto_tpu/exec/executor.py:1152-1168: the output
+                # capacity is a bucket of the source capacity times the
+                # fan-out hint; the true total is watched like an
+                # expansion join's
+                p = run(node.source)
+                fan = max(node.fanout_hint, 1.0)
+                out_cap = caps.get(nid) or bucket_capacity(
+                    min(int(p.capacity * fan), 2**26))
+                caps[nid] = out_cap
+                out, total = unnest_page(
+                    p, node.replicate_fields, node.unnest_fields, out_cap,
+                    node.with_ordinality, node.output_names)
+                watch.append(nid)
+                needed.append(total)
+                return out
             if isinstance(node, WindowNode):
                 out = window_page(run(node.source), node.partition_fields,
                                   node.order_keys, node.specs)

@@ -54,6 +54,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                        _I32, _P, _P, _P]},
     "window": {"window_frame": [_P, _P, _P, _I64, _P]},
     "int128": {"int128_op": [_P, _P]},
+    "unnest": {
+        "unnest_expand": [_P, _I32, _I64, _P, _I64, _I64, _P, _P, _P, _P,
+                          _P, _P, _P, _P, _P]},
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

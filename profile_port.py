@@ -10,10 +10,11 @@ query at SF1 (`breadth_queries()`; that one returns 1.5M rows and is
 timed to its result page on the card, without the conversion to Python
 rows) and the decimal path's TPC-H q01, q03, q06, q10 and q19 over SF1
 lineitem with DECIMAL(12,2) money columns (`decimal_queries()`, named
-dec_q01 ..; --only limits the run to the named queries) through
-presto_tpu_torch's LocalEngine on the card: once cold
-(column uploads, capacity retries), WARM times warm and timed, once warm
-under torch.profiler. Prints per query the median warm wall time,
+dec_q01 ..) and the nested path's UNNEST queries n1-n4 over the SF1
+orders_nested table (`nested_queries()`) through presto_tpu_torch's
+LocalEngine on the card (--only limits the run to the named queries):
+once cold (column uploads, capacity retries), WARM times warm and timed,
+once warm under torch.profiler. Prints per query the median warm wall time,
 the device busy time (the union of kernel and copy intervals in the
 trace) beside the traced run's wall time, the device time by kind
 (sorts: cub radix sorts; gathers: torch's index kernels; hand-written:
@@ -35,7 +36,8 @@ import time
 from pathlib import Path
 
 from chip_smoke import SF, TPCDS_SF, breadth_queries, card_line, \
-    decimal_connector, decimal_queries, main_queries, run_query
+    decimal_connector, decimal_queries, main_queries, nested_connector, \
+    nested_queries, run_query
 
 TOP = 8        # heaviest device kernels listed per query
 WARM = 7       # timed warm runs per query (median reported)
@@ -149,8 +151,14 @@ def main() -> int:
     dec_engine = LocalEngine(decimal_connector(engine.connector))
     runs += [(f"dec_{name}", dec_engine, sql, False)
              for name, (sql, _ordered) in decimal_queries().items()]
-    if args.only:
-        names = set(args.only.split(","))
+    names = set(args.only.split(",")) if args.only else None
+    if names is None or names & set(nested_queries()):
+        from presto_tpu_torch.connectors.tpch import nested_orders
+        nested_engine = LocalEngine(nested_connector(
+            engine.connector, nested_orders(SF)))
+        runs += [(name, nested_engine, sql, False)
+                 for name, (sql, _flat) in nested_queries().items()]
+    if names is not None:
         runs = [r for r in runs if r[0] in names]
     for name, eng, sql, as_page in runs:
         r = profile_query(eng, sql, as_page)

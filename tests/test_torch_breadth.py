@@ -12,7 +12,6 @@ where the query has no ORDER BY.
 """
 
 import pytest
-import torch
 
 from presto_tpu.connectors import TpchConnector as RefTpch
 from presto_tpu.exec import LocalEngine as RefEngine
@@ -24,6 +23,7 @@ from tests.test_grouping_sets import CASES
 from tests.test_window_outer import (
     BOUNDED_MINMAX_QUERIES, FRAME_QUERIES, WINDOW_QUERIES,
 )
+from torch_threads import _one_torch_thread  # noqa: F401
 
 SF = 0.01
 
@@ -47,17 +47,6 @@ QUERIES = ([("window", i, q) for i, q in enumerate(WINDOW_QUERIES)]
            + [("string_minmax", 0, STRING_MINMAX),
               ("mark_distinct", 0, MIXED_DISTINCT),
               ("union_all", 0, UNION_TWO_DICTS)])
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The CPU pages here are small: torch's intra-op threads do not speed
-    these tests up, and under pytest-xdist they would take cores from the
-    tests running beside them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -44,6 +44,7 @@ from presto_tpu_torch.data import int128 as PI
 from presto_tpu_torch.exec.engine import LocalEngine
 from presto_tpu_torch.ops import aggregate as PA
 from tests.tpch_queries import QUERIES as TPCH
+from torch_threads import _one_torch_thread  # noqa: F401
 
 M = 0xFFFFFFFF
 BOUND = 10 ** 38 - 1

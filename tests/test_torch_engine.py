@@ -20,6 +20,7 @@ from presto_tpu_torch.connectors import TpchConnector
 from presto_tpu_torch.exec.engine import LocalEngine
 from tests.oracle import assert_rows_match
 from tests.tpch_queries import QUERIES
+from torch_threads import _one_torch_thread  # noqa: F401
 
 SF = 0.01
 

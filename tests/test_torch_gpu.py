@@ -591,3 +591,81 @@ def test_spec_typed_tpch_on_the_card_matches_the_cpu(cuda):
         got = gpu.execute_sql(sql)
         assert got == cpu.execute_sql(sql) and got
     assert gpu.execute_sql(sqls[5])[0][1] == 2 * big
+
+
+def _unnest_channels(rng, cap, nch, dev):
+    """Seeded K11 inputs: per channel int32 starts and lengths (0-9, some
+    rows empty) and NULL flags (about 10%)."""
+    starts, lengths, nulls = [], [], []
+    for _ in range(nch):
+        ln = rng.integers(0, 10, cap).astype(np.int32)
+        st = np.concatenate([[0], np.cumsum(ln)[:-1]]).astype(np.int32)
+        starts.append(torch.from_numpy(st).to(dev))
+        lengths.append(torch.from_numpy(ln).to(dev))
+        nulls.append(torch.from_numpy(rng.random(cap) < 0.1).to(dev))
+    return starts, lengths, nulls
+
+
+@pytest.mark.parametrize("cap,num_rows,nch,out_cap,ordinality", [
+    (4096, 3001, 1, 16384, False),
+    (4096, 4096, 3, 8192, True),          # out_cap below the total
+    (1 << 21, 1_500_000, 2, 1 << 23, True),
+    (256, 0, 8, 256, True),               # no live rows
+])
+def test_unnest_expand_kernel_matches_plain(cuda, cap, num_rows, nch,
+                                            out_cap, ordinality):
+    from presto_tpu_torch.ops import unnest as U
+    rng = np.random.default_rng(53)
+    st, ln, nl = _unnest_channels(rng, cap, nch, "cpu")
+    n = torch.tensor(num_rows, dtype=torch.int64)
+    plain = U.unnest_expand(st, ln, nl, n, out_cap, ordinality)
+    before = U.unnest_expand.launches
+    got = U.unnest_expand([t.to(cuda) for t in st], [t.to(cuda) for t in ln],
+                          [t.to(cuda) for t in nl], n.to(cuda), out_cap,
+                          ordinality)
+    torch.cuda.synchronize()
+    assert U.unnest_expand.launches == before + 1
+    for g, p in zip(got, plain):
+        if p is None:
+            assert g is None
+        else:
+            _same(g, p)
+
+
+def test_unnest_expand_kernel_raises_beyond_eight_channels(cuda):
+    """The kernel takes up to eight channels; a ninth raises on the card
+    (the plain version takes any number)."""
+    from presto_tpu_torch.ops import unnest as U
+    st, ln, nl = _unnest_channels(np.random.default_rng(61), 64, 9, cuda)
+    with pytest.raises(NotImplementedError):
+        U.unnest_expand(st, ln, nl, torch.tensor(64, device=cuda), 1024,
+                        False)
+
+
+def test_unnest_on_the_card_matches_the_cpu(cuda):
+    """UNNEST over the nested TPC-H orders table (SF 0.01), with a fan-out
+    above the capacity hint's (overflow and rerun), on both devices."""
+    from presto_tpu_torch.connectors import MemoryConnector, TpchConnector
+    from presto_tpu_torch.connectors.tpch import nested_orders
+    from presto_tpu_torch.exec.engine import LocalEngine
+    from presto_tpu_torch.ops import unnest as U
+    mem = MemoryConnector(fallback=TpchConnector(0.01))
+    mem.register(nested_orders(0.01))
+    mem.create("wide", [("id", T.BIGINT), ("xs", T.ArrayType(T.BIGINT))])
+    rng = np.random.default_rng(59)
+    mem.append_rows("wide", [
+        (i, [int(v) for v in rng.integers(0, 100, rng.integers(16, 49))])
+        for i in range(300)])
+    gpu, cpu = LocalEngine(mem), LocalEngine(mem, device="cpu")
+    sqls = [
+        "SELECT o_orderpriority, count(*), sum(pk) FROM orders_nested "
+        "CROSS JOIN UNNEST(l_partkeys) AS t(pk) GROUP BY 1 ORDER BY 1",
+        "SELECT count(*), count(pk), count(r) FROM orders_nested "
+        "CROSS JOIN UNNEST(l_partkeys, l_returned) AS t(pk, r)",
+        "SELECT id, x, n FROM wide CROSS JOIN UNNEST(xs) WITH ORDINALITY "
+        "AS t(x, n) ORDER BY id, n"]
+    before = U.unnest_expand.launches
+    for sql in sqls:
+        got = gpu.execute_sql(sql)
+        assert got == cpu.execute_sql(sql) and got
+    assert U.unnest_expand.launches > before

@@ -31,19 +31,9 @@ from presto_tpu_torch import types as PT
 from presto_tpu_torch.data import column as PC
 from presto_tpu_torch.ops import join as PJ
 from presto_tpu_torch.ops import keys as PK
+from torch_threads import _one_torch_thread  # noqa: F401
 
 CAP = 4096
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The CPU pages here are small: torch's intra-op threads do not speed
-    these tests up (same wall time with 1 and 8), and under pytest-xdist
-    they would take cores from the tests running beside them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _pages(cols, n, cap=CAP):

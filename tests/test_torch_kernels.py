@@ -34,6 +34,7 @@ from presto_tpu_torch.ops import keys as PK
 from presto_tpu_torch.ops import scan as PS
 from presto_tpu_torch.ops import sort as PO
 from tests.oracle import assert_rows_match
+from torch_threads import _one_torch_thread  # noqa: F401
 
 TOL = 1e-9
 CAP = 4096

@@ -14,7 +14,6 @@
 
 import numpy as np
 import pytest
-import torch
 
 from presto_tpu.connectors import TpcdsConnector as RefTpcds
 from presto_tpu_torch.connectors import TpcdsConnector
@@ -24,20 +23,10 @@ from tests import test_tpch_full
 from tests.tpcds_queries import (
     Q22_SQLITE, Q27_SQLITE, QUERIES, SQLITE_OVERRIDES,
 )
+from torch_threads import _one_torch_thread  # noqa: F401
 
 SF = 0.002
 SQLITE_SPELLING = {22: Q22_SQLITE, 27: Q27_SQLITE, **SQLITE_OVERRIDES}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The CPU pages here are small: torch's intra-op threads do not speed
-    these tests up, and under pytest-xdist they would take cores from the
-    tests running beside them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -12,7 +12,6 @@ AssignUniqueId and scalar subqueries.
 """
 
 import pytest
-import torch
 
 from presto_tpu.config import Session as RefSession
 from presto_tpu.connectors import TpchConnector as RefTpch
@@ -24,20 +23,10 @@ from presto_tpu_torch.testing import sqlite_oracle
 from tests import test_tpch_full
 from tests.oracle import assert_rows_match
 from tests.tpch_queries import QUERIES
+from torch_threads import _one_torch_thread  # noqa: F401
 
 SF = 0.01
 AGAINST_JAX = (3, 4, 13, 16, 21, 22)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The CPU pages here are small: torch's intra-op threads do not speed
-    these tests up (same wall time with 1 and 8), and under pytest-xdist
-    they would take cores from the tests running beside them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -43,22 +43,12 @@ from presto_tpu_torch.ops import keys as PK
 from presto_tpu_torch.ops import mark_distinct as PM
 from presto_tpu_torch.ops import scan as PS
 from presto_tpu_torch.ops import window as PW
+from torch_threads import _one_torch_thread  # noqa: F401
 
 RTOL = 1e-9
 LENGTHS = [1, 2047, 2048, 2049, 10_000]
 I64 = np.iinfo(np.int64)
 I32 = np.iinfo(np.int32)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The CPU pages here are small: torch's intra-op threads do not speed
-    these tests up, and under pytest-xdist they would take cores from the
-    tests running beside them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _exact(p, r, what=""):
