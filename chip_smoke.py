@@ -12,10 +12,15 @@ Phases, each fatal on failure, each printing its seconds:
      lineitems); each kernel (K1 direct_agg, K2 compact_indices, K3
      segment_reduce, K4 hash_columns, K5 join_probe, K6 join_expand, K7
      segmented_scan, K8 key_change_flags, K9 window_frame, K10 int128_op,
-     the 128-bit sum modes of K1 and K3, and K11 unnest_expand on the
+     the 128-bit sum modes of K1 and K3, K11 unnest_expand on the
      nested orders' l_partkeys and l_returned with the ordinality, at the
-     capacity the executor gives that unnest) at the shapes SF1 gives it
-     on the main path
+     capacity the executor gives that unnest, and on 9 and 12 seeded
+     channels, K12 hll_registers in direct mode on a2's and a1's columns
+     (their first values replaced by values whose hash has w = 2^k - 1)
+     and in sorted mode on 1.5M one-row groups, a3's 10,000 groups and
+     a4's seven groups of 0.86M rows, K13 segment_pick on a1's global
+     median and a3's 10,000 groups) at the shapes SF1 gives it on the main
+     path
      (K1-K3 on seeded numpy data; K4-K6 on q13's join of customer with
      orders; K7 on TPC-DS q51's largest window input and on orders
      partitioned by o_custkey; K8 and K9 on that orders page; K10 and the
@@ -23,7 +28,8 @@ Phases, each fatal on failure, each printing its seconds:
      rows of 2 x 9.9e37, at q01's and the q18 block's shapes), held
      against its plain PyTorch version on the card (counts, indices,
      hashes, join pairs, flags, positions, min and max, limb sums and
-     128-bit results and overflow flags exact; float64 sums within 1e-9
+     128-bit results and overflow flags, HyperLogLog registers, present
+     sums and counts, order statistics exact; float64 sums within 1e-9
      relative, since the kernels sum in another order; K10's cast to
      double within 1e-15, since torch divides by a scalar through its
      reciprocal), and
@@ -45,14 +51,15 @@ Phases, each fatal on failure, each printing its seconds:
         windows and a distinct mark, each cold and warm on the card, the
         warm rows held against the cold ones and against the engine on
         the CPU; K7-K9 must have been launched here;
-     c. the decimal path: TPC-H q01, q03, q06, q10 and q19 over SF1
-        lineitem with its four money columns typed DECIMAL(12,2), as the
-        spec types them (a MemoryConnector table over the generator's
-        arrays, falling back to TpchConnector(1.0)), each cold and warm on
-        the card; the rows held exactly (Decimal for Decimal) against the
-        cold run, the engine on the CPU and, for q01 and q06, numpy int64
-        arithmetic; K10 and the 128-bit modes of K1 and K3 must have been
-        launched here;
+     c. the decimal path: TPC-H q01, q03, q06, q10 and q19 and a
+        DECIMAL(33,4) min/max (DECIMAL_MINMAX) over SF1 lineitem with its
+        four money columns typed DECIMAL(12,2), as the spec types them (a
+        MemoryConnector table over the generator's arrays, falling back to
+        TpchConnector(1.0)), each cold and warm on the card; the rows held
+        exactly (Decimal for Decimal) against the cold run, the engine on
+        the CPU and, for q01, q06 and the min/max, numpy int64 arithmetic;
+        K10 and the 128-bit modes of K1 and K3 must have been launched
+        here;
      d. the nested path: the four UNNEST queries of
         tests/test_torch_unnest.py (NESTED_ORDERS_QUERIES) over
         orders_nested (connectors/tpch.nested_orders at SF1, built from
@@ -61,6 +68,17 @@ Phases, each fatal on failure, each printing its seconds:
         exactly against the cold run, the engine on the CPU, and the flat
         query over orders and lineitem on the card (numpy counts for the
         count query); K11 must have been launched here;
+     e. the approx path: a1-a5 (APPROX_QUERIES: approx_distinct and
+        approx_percentile on the global, direct and sorted paths) over
+        TPC-H SF1, each cold and warm on the card; the rows held exactly
+        against the cold run and the engine on the CPU, and against numpy
+        over the generated arrays: percentiles exactly, distinct counts
+        exactly against a HyperLogLog written anew in numpy (numpy_hll)
+        and, as each query's root mean square relative error, within
+        three standard errors of the sketch (HLL_BOUND, 6.9%) of the exact
+        counts (10,000 groups of about 80 distinct values put a few
+        single counts past 6.9% by chance: a3 has one at 7.5%); K12 and
+        K13 must have been launched here;
   5. all 22 TPC-H queries at SF 0.01 and all 99 TPC-DS queries at SF
      0.002 on the card, cold and warm, the window and grouping-set
      queries of tests/test_window_outer.py and tests/test_grouping_sets.py
@@ -68,12 +86,14 @@ Phases, each fatal on failure, each printing its seconds:
      tests/test_unnest_nested.py over its docs table, the rows of both
      runs held against sqlite over the same generated tables
      (presto_tpu_torch/testing/sqlite_oracle.py; for the docs table, that
-     file's flattened sqlite tables); every kernel must have been
+     file's flattened sqlite tables), and the six queries of
+     tests/test_approx_aggs.py at SF 0.01 held exactly against the engine
+     on the CPU (sqlite has no sketch); every kernel must have been
      launched here too.
 
 The JSON kernel report is printed two lines before the end, then the
 card's name and power limit, then {"ok": true, "device": {...}} as the
-last line; each kernel's `launches` there is its count over the four
+last line; each kernel's `launches` there is its count over the five
 main paths of phase 4. Imports nothing of JAX or presto_tpu: the query lists
 of the test files are read from their source with `ast`.
 """
@@ -213,6 +233,61 @@ TPCH_BREADTH = {
 }
 
 
+#: the approx path (phase 4e) over TPC-H SF1: name -> SQL; a1 global, a2
+#: direct (dictionary keys), a3 sorted over 10,000 groups, a4 sorted over
+#: seven groups of about 0.86M rows, a5 a filter mask and a VARCHAR input
+APPROX_QUERIES = {
+    "a1": "select approx_distinct(l_partkey), "
+          "approx_distinct(l_extendedprice), "
+          "approx_percentile(l_quantity, 0.5) from lineitem",
+    "a2": "select l_returnflag, l_linestatus, approx_distinct(l_orderkey), "
+          "approx_percentile(l_extendedprice, 0.9), count(*) from lineitem "
+          "group by l_returnflag, l_linestatus",
+    "a3": "select l_suppkey, approx_distinct(l_partkey), "
+          "approx_percentile(l_discount, 0.25) from lineitem "
+          "group by l_suppkey",
+    "a4": "select l_linenumber, approx_distinct(l_partkey), "
+          "approx_percentile(l_shipdate, 0.5) from lineitem "
+          "group by l_linenumber",
+    "a5": "select o_orderpriority, approx_distinct(o_clerk), "
+          "approx_distinct(o_custkey) from orders "
+          "where o_orderstatus = 'F' group by o_orderpriority",
+}
+#: three standard errors of a 2048-register HyperLogLog sketch (1.04 /
+#: sqrt(2048) each)
+HLL_BOUND = 3 * 1.04 / 2048 ** 0.5
+
+_MASK64 = (1 << 64) - 1
+
+
+def _unxorshift(y: int, k: int) -> int:
+    """x with x ^ (x >> k) == y (64-bit)."""
+    x = y
+    for _ in range(64 // k + 1):
+        x = y ^ (x >> k)
+    return x
+
+
+def hll_boundary_values(ks, reg: int = 5) -> np.ndarray:
+    """int64 values whose approx_distinct hash, mix64(v + GOLDEN), has
+    register `reg` and w = h >> 11 equal to 2^k - 1 for each k (k = 0:
+    w = 0): splitmix64's finalizer inverted step by step with the
+    modular inverses of its multipliers. Rounded to float32, 2^k - 1 stays
+    below 2^k for k <= 24 and rounds up to it from k = 25, which moves
+    the rank; k = 53 rounds to 2^53, rank 0."""
+    golden = 0x9E3779B97F4A7C15
+    inv1 = pow(0xBF58476D1CE4E5B9, -1, 1 << 64)
+    inv2 = pow(0x94D049BB133111EB, -1, 1 << 64)
+    out = []
+    for k in ks:
+        h = (((1 << k) - 1) << 11) | reg
+        x = (_unxorshift(h, 31) * inv2) & _MASK64
+        x = (_unxorshift(x, 27) * inv1) & _MASK64
+        v = (_unxorshift(x, 30) - golden) & _MASK64
+        out.append(v - (1 << 64) if v >> 63 else v)
+    return np.array(out, dtype=np.int64)
+
+
 def main_queries() -> dict:
     """The main path's queries: name -> (SQL, whether its rows come in a
     defined order)."""
@@ -223,12 +298,24 @@ def main_queries() -> dict:
         ("q18", tpch[18]), ("q21", tpch[21]), ("q22", tpch[22])]}
 
 
+#: the decimal path's min and max over a DECIMAL(33,4) product (the
+#: DECIMAL(p>18) min/max of the direct path)
+DECIMAL_MINMAX = """
+select l_returnflag, l_linestatus, min(l_extendedprice * (1 - l_discount)),
+       max(l_extendedprice * (1 - l_discount))
+from lineitem
+group by l_returnflag, l_linestatus
+"""
+
+
 def decimal_queries() -> dict:
     """The decimal path's queries: name -> (SQL, whether its rows come in
     a defined order)."""
     tpch = tpch_queries()
-    return {f"q{q:02d}": (tpch[q], "order by" in tpch[q].lower())
-            for q in DECIMAL_MAIN}
+    out = {f"q{q:02d}": (tpch[q], "order by" in tpch[q].lower())
+           for q in DECIMAL_MAIN}
+    out["minmax"] = (DECIMAL_MINMAX, False)
+    return out
 
 
 def decimal_connector(conn):
@@ -970,6 +1057,196 @@ def kernel_unnest_expand(table, dev, repeat):
             "library_ms": cuda_time_ms(library, repeat)}
 
 
+def kernel_unnest_channels(dev, repeat) -> None:
+    """K11 beyond one launch's eight channels: 9 and 12 seeded channels
+    (lengths 0-9, about 10% NULL rows) over a 2,097,152-row page of
+    1,500,000 rows at phase 4d's capacity, exact against the plain
+    version; times printed on a line of their own."""
+    import torch
+    from presto_tpu_torch.ops import unnest as U
+    rng = np.random.default_rng(SEED + 11)
+    cap, n, out_cap = 2_097_152, 1_500_000, 8_388_608
+    for nch in (9, 12):
+        st, ln, nl = [], [], []
+        for _ in range(nch):
+            lengths = rng.integers(0, 10, cap).astype(np.int32)
+            st.append(torch.from_numpy(np.concatenate(
+                [[0], np.cumsum(lengths)[:-1]]).astype(np.int32)).to(dev))
+            ln.append(torch.from_numpy(lengths).to(dev))
+            nl.append(torch.from_numpy(rng.random(cap) < 0.1).to(dev))
+        args = (st, ln, nl, torch.tensor(n, device=dev), out_cap, True)
+        got, want = U.unnest_expand(*args), U._unnest_expand_plain(*args)
+        for g, w in zip(got, want):
+            if not exact(g, w):
+                fail(f"unnest_expand with {nch} channels differs from the "
+                     f"plain version")
+        ms = cuda_time_ms(lambda: U.unnest_expand(*args), repeat)
+        plain_ms = cuda_time_ms(lambda: U._unnest_expand_plain(*args),
+                                max(repeat // 4, 2))
+        print(f"unnest_expand with {nch} channels ({int(got[-1])} slots in "
+              f"{out_cap}): equal to the plain version; {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms", flush=True)
+        del got, want, st, ln, nl
+
+
+def _hll_bytes(flags: int, live: int, bins: int = 0, groups: int = 0):
+    """K12's bytes: `flags` live flags read, each live row's value (8 B)
+    and in direct mode its bin code (4 B); in direct mode each bin's
+    registers (8 KB) written and its present and count; in sorted mode
+    each group's start, end, present and count."""
+    return (flags + live * (12 if bins else 8)
+            + bins * (2048 * 4 + 16) + groups * 32)
+
+
+def _hll_case(what, vals, live, repeat, **mode) -> dict:
+    """K12 in one mode against its plain version on the card (registers,
+    present and count exact), timed beside it."""
+    from presto_tpu_torch.ops import aggregate as A
+    got = A.hll_registers(vals, live, **mode)
+    want = A._hll_registers_plain(vals, live, mode.get("codes"),
+                                  mode.get("bins"), mode.get("starts"),
+                                  mode.get("ends"))
+    for name, g, w in zip(("present", "count", "registers"), got, want):
+        if (g is None) != (w is None) or (g is not None and not exact(g, w)):
+            fail(f"hll_registers ({what}) {name} differ from the plain "
+                 f"version")
+    return {"ms": cuda_time_ms(lambda: A.hll_registers(vals, live, **mode),
+                               repeat),
+            "plain_ms": cuda_time_ms(lambda: A._hll_registers_plain(
+                vals, live, mode.get("codes"), mode.get("bins"),
+                mode.get("starts"), mode.get("ends")), max(repeat // 4, 2))}
+
+
+def kernel_hll_registers(conn, dev, repeat) -> dict:
+    """K12 at phase 4e's SF1 shapes. Direct mode (the kernel line): a2's
+    approx_distinct(l_orderkey) by l_returnflag, l_linestatus (12 bins,
+    6,001,215 rows in the 8,388,608-row page), its first values replaced
+    by values whose hash has w = 2^k - 1 for k in 0..53 (where the float32
+    rounding moves the rank), and a1's global l_partkey. Sorted mode, on
+    lines of their own: 1,500,000 one-row groups (a 2,097,152-row page,
+    as orders by o_orderkey), a3's 10,000 groups of about 600 rows and
+    a4's seven groups of about 0.86M rows, over l_partkey."""
+    import torch
+    from presto_tpu_torch.ops import aggregate as A
+    page = conn.table("lineitem").page(
+        ["l_returnflag", "l_linestatus", "l_orderkey", "l_partkey"],
+        device=dev)
+    rf, ls, okey, pkey = page.columns
+    cap, n = page.capacity, int(page.num_rows)
+    live = page.row_valid()
+    bounds = torch.from_numpy(np.concatenate(
+        [hll_boundary_values(range(54), r) for r in (0, 7, 2047)])).to(dev)
+    vals = okey.values.clone()
+    vals[:bounds.shape[0]] = bounds
+    keys = [(rf.values.to(torch.int32), rf.nulls),
+            (ls.values.to(torch.int32), ls.nulls)]
+    domains = [len(rf.dictionary), len(ls.dictionary)]
+    bins = (domains[0] + 1) * (domains[1] + 1)
+    codes = A._bin_codes(keys, domains, cap, dev)
+    direct = _hll_case("direct, a2", vals, live, repeat, codes=codes,
+                       bins=bins)
+    zero = torch.zeros(cap, dtype=torch.int32, device=dev)
+    glob = _hll_case("global, a1", pkey.values, live, repeat, codes=zero,
+                     bins=1)
+    print(f"hll_registers global (a1's l_partkey, {n} rows): "
+          f"{glob['ms']:.3f} ms, plain {glob['plain_ms']:.3f} ms, bound "
+          f"{_hll_bytes(cap, n, bins=1) / HBM_BYTES_PER_S * 1e3:.4f} ms",
+          flush=True)
+
+    rng = np.random.default_rng(SEED + 13)
+    sizes = {"1,500,000 one-row groups": (
+                 np.ones(1_500_000, np.int64), 2_097_152, 2_097_152),
+             "a3, 10,000 groups": (
+                 np.bincount(rng.integers(0, 10_000, n), minlength=10_000),
+                 cap, 16_384),
+             "a4, seven 0.86M-row groups": (
+                 np.bincount(rng.integers(0, 7, n), minlength=7), cap, 1024)}
+    for what, (lengths, rows_cap, g_cap) in sizes.items():
+        ends_np = np.cumsum(lengths)
+        total = int(ends_np[-1])
+        pad = g_cap - len(lengths)
+        ends = torch.from_numpy(np.concatenate(
+            [ends_np, np.full(pad, total)])).to(dev)
+        starts = torch.from_numpy(np.concatenate(
+            [ends_np - lengths, np.full(pad, total)])).to(dev)
+        sv = pkey.values[:rows_cap].contiguous()
+        sl = torch.arange(rows_cap, device=dev) < total
+        r = _hll_case(f"sorted, {what}", sv, sl, repeat, starts=starts,
+                      ends=ends)
+        bound = _hll_bytes(total, total, groups=g_cap) \
+            / HBM_BYTES_PER_S * 1e3
+        print(f"hll_registers sorted ({what}, {total} rows, {g_cap} group "
+              f"slots): {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"bound {bound:.4f} ms", flush=True)
+    live_rows = int(live.sum())
+    return {"name": "hll_registers", "route": "cuda",
+            "source": "presto_tpu_torch/csrc/hll.cu",
+            "replaces": "presto_tpu/ops/aggregate.py:71",
+            "max_abs_err": 0.0, "ms": direct["ms"],
+            "plain_ms": direct["plain_ms"],
+            "bound_ms": _hll_bytes(cap, live_rows, bins=bins)
+            / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None}
+
+
+def kernel_segment_pick(conn, dev, repeat) -> dict:
+    """K13 at phase 4e's SF1 shapes: a1's global median of l_quantity
+    (6,001,215 sorted values in the 8,388,608-row page, one group; the
+    kernel line, with torch.kthvalue over the same sorted values as the
+    library call) and, on a line of its own, a3's 25th percentile of
+    l_discount over 10,000 groups (16,384 group slots)."""
+    import torch
+    from presto_tpu_torch.ops import aggregate as A
+    from presto_tpu_torch.ops.keys import lex_perm
+    page = conn.table("lineitem").page(["l_quantity", "l_suppkey",
+                                        "l_discount"], device=dev)
+    qty, supp, disc = page.columns
+    n = int(page.num_rows)
+    live = page.row_valid()
+    sq = qty.values[lex_perm([(~live).to(torch.int8), qty.values])]
+    starts = torch.zeros(1, dtype=torch.int64, device=dev)
+    counts = torch.full((1,), n, dtype=torch.int64, device=dev)
+    for p in (0.0, 0.5, 1.0):
+        got = A.segment_pick(sq, starts, counts, p)
+        want = A._segment_pick_plain(sq, starts, counts, p)
+        if not (exact(got[0], want[0]) and exact(got[1], want[1])):
+            fail(f"segment_pick (global, p={p}) differs from the plain "
+                 f"version")
+    k = int(np.floor(0.5 * (n - 1))) + 1
+    if float(torch.kthvalue(sq[:n], k).values) != float(
+            A.segment_pick(sq, starts, counts, 0.5)[0][0]):
+        fail("segment_pick's global median differs from torch.kthvalue")
+    gid = torch.where(live, supp.values, 1 << 40)
+    perm = lex_perm([gid, disc.values])
+    sd = disc.values[perm]
+    g_cap = 16_384
+    cnt = torch.bincount(supp.values[live], minlength=g_cap)[:g_cap]
+    g_starts = torch.cumsum(cnt, 0) - cnt
+    a3 = (sd, g_starts, cnt, 0.25)
+    got, want = A.segment_pick(*a3), A._segment_pick_plain(*a3)
+    if not (exact(got[0], want[0]) and exact(got[1], want[1])):
+        fail("segment_pick (a3) differs from the plain version")
+    ms = cuda_time_ms(lambda: A.segment_pick(*a3), repeat)
+    plain_ms = cuda_time_ms(lambda: A._segment_pick_plain(*a3), repeat)
+    print(f"segment_pick (a3, {g_cap} groups): {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound "
+          f"{g_cap * 33 / HBM_BYTES_PER_S * 1e3:.5f} ms", flush=True)
+    args = (sq, starts, counts, 0.5)
+    # per group its start and count read, one value gathered, the value
+    # and its null flag written
+    return {"name": "segment_pick", "route": "cuda",
+            "source": "presto_tpu_torch/csrc/percentile.cu",
+            "replaces": "presto_tpu/ops/aggregate.py:392",
+            "max_abs_err": 0.0,
+            "ms": cuda_time_ms(lambda: A.segment_pick(*args), repeat),
+            "plain_ms": cuda_time_ms(lambda: A._segment_pick_plain(*args),
+                                     repeat),
+            "bound_ms": 33 / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "library_ms": cuda_time_ms(lambda: torch.kthvalue(sq[:n], k),
+                                       repeat)}
+
+
 def capture_windows(engine, sql: str) -> list:
     """The window_page calls (page, partition fields, order keys, specs) a
     query makes, recorded while it runs on `engine`."""
@@ -1280,7 +1557,22 @@ def _breadth_op_rows(conn, ds_conn, repeat) -> list:
     return [md, gi, ua]
 
 
-def torch_op_rows(conn, ds_conn, dev, repeat) -> list:
+def _wide_minmax_row(dec_conn, repeat) -> dict:
+    """The DECIMAL(p>18) min/max of the direct path at its SF1 shape: the
+    arguments of DECIMAL_MINMAX's min while it runs on the card over the
+    DECIMAL(12,2) lineitem."""
+    from presto_tpu_torch.exec.engine import LocalEngine
+    from presto_tpu_torch.ops import aggregate as A
+    orig, args = _capture(A, "_wide_minmax_direct", LocalEngine(dec_conn),
+                          DECIMAL_MINMAX, lambda c: c[0] == "min")
+    cap = args[1][0].shape[0]
+    # four limb lanes, the live flag and the bin code read per row
+    return _stage_row("wide_minmax", f"DECIMAL(33,4) min, {args[4]} bins",
+                      cap, lambda: orig(*args), cap * (4 * 8 + 1 + 4),
+                      repeat)
+
+
+def torch_op_rows(conn, ds_conn, dec_conn, dev, repeat) -> list:
     """Card times of the main path's torch-op stages that have no kernel
     of their own, at SF1 shapes, beside their bounds (bytes each input is
     read and each output written once, over HBM_BYTES_PER_S):
@@ -1294,7 +1586,8 @@ def torch_op_rows(conn, ds_conn, dev, repeat) -> list:
       elementwise passes its fused aggregation evaluates;
     - full_outer_append: TPC-DS q97's FULL join tail;
     - mark_distinct, group_id and union_all: the breadth path's largest
-      MarkDistinct, GroupId and UNION ALL calls."""
+      MarkDistinct, GroupId and UNION ALL calls;
+    - wide_minmax: the decimal path's DECIMAL(p>18) min."""
     import torch
     from presto_tpu_torch.exec.engine import LocalEngine
     from presto_tpu_torch.expr.compile import compile_expr
@@ -1365,6 +1658,7 @@ def torch_op_rows(conn, ds_conn, dev, repeat) -> list:
                  "device_kernels": _device_kernels(evaluate)})
     rows.append(_full_outer_append_row(ds_conn, repeat))
     rows.extend(_breadth_op_rows(conn, ds_conn, repeat))
+    rows.append(_wide_minmax_row(dec_conn, repeat))
     print("torch-op stages at SF1: " + json.dumps(rows), flush=True)
     return rows
 
@@ -1373,17 +1667,38 @@ class CallCounter:
     """Counts calls of the torch-op stages on the card on a main path
     (the CPU comparisons do not count): the stable key sorts of
     lex_perm/sort_perm (ops/keys._argsort, one torch.sort each), the
-    evaluations of compiled expressions (exec/executor's compile_expr)
-    and the FULL joins' appends (ops/join.full_outer_append)."""
+    evaluations of compiled expressions (exec/executor's compile_expr),
+    the FULL joins' appends (ops/join.full_outer_append), GroupId and
+    UNION ALL (exec/executor's group_id_page and union_all_pages) and the
+    DECIMAL(p>18) min/max (ops/aggregate's _wide_minmax_direct and
+    _wide_minmax_sorted)."""
 
     def __init__(self):
         from presto_tpu_torch.exec import executor as X
+        from presto_tpu_torch.ops import aggregate as A
         from presto_tpu_torch.ops import keys as K
         from presto_tpu_torch.ops import join as J
         self.counts = {"key_sorts": 0, "expression_evaluations": 0,
-                       "full_outer_appends": 0}
+                       "full_outer_appends": 0, "group_id_pages": 0,
+                       "union_all_pages": 0, "wide_minmax": 0}
         argsort, compile_expr = K._argsort, X.compile_expr
         append = J.full_outer_append
+
+        def counted(module, name, key, on_card):
+            fn = getattr(module, name)
+
+            def run(*args):
+                self.counts[key] += on_card(*args)
+                return fn(*args)
+            setattr(module, name, run)
+
+        counted(X, "group_id_page", "group_id_pages",
+                lambda src, _node: src.device.type == "cuda")
+        counted(X, "union_all_pages", "union_all_pages",
+                lambda pages, *_: pages[0].device.type == "cuda")
+        for name in ("_wide_minmax_direct", "_wide_minmax_sorted"):
+            counted(A, name, "wide_minmax",
+                    lambda _kind, lanes, *_: lanes[0].is_cuda)
 
         def counted_append(left, probe, build, unmatched):
             self.counts["full_outer_appends"] += unmatched.is_cuda
@@ -1737,25 +2052,31 @@ def decimal_numpy_reference(table) -> dict:
     m = ((ship >= _days(1994, 1, 1)) & (ship < _days(1995, 1, 1))
          & (disc >= 5) & (disc <= 7) & (qty < 2400))
     q06 = [(Decimal(int(np.sum(price[m] * disc[m]))).scaleb(-4),)]
-    return {"q01": q01, "q06": q06}
+    code = a["l_returnflag"].astype(np.int64) * nls + a["l_linestatus"]
+    prod = price * (100 - disc)
+    minmax = [(words["l_returnflag"][u // nls], words["l_linestatus"][u % nls],
+               Decimal(int(prod[code == u].min())).scaleb(-4),
+               Decimal(int(prod[code == u].max())).scaleb(-4))
+              for u in np.unique(code)]
+    return {"q01": q01, "q06": q06, "minmax": minmax}
 
 
-def decimal_path(conn, counters) -> dict:
-    """Phase 4c: TPC-H q01, q03, q06, q10 and q19 over lineitem with its
-    money columns typed DECIMAL(12,2) (the spec's types), cold and warm on
-    the card, with the kernels' launch counts set to 0 just before and
-    read just after; the warm rows held against the cold ones and against
-    the engine on the CPU exactly (Decimal for Decimal), and for q01 and
-    q06 against numpy int64. K10 and the 128-bit modes of K1 and K3 must
-    have been launched."""
+def decimal_path(mem, counters) -> dict:
+    """Phase 4c: TPC-H q01, q03, q06, q10 and q19 and DECIMAL_MINMAX over
+    lineitem with its money columns typed DECIMAL(12,2) (the spec's types;
+    `mem`, a decimal_connector), cold and warm on the card, with the
+    kernels' launch counts set to 0 just before and read just after; the
+    warm rows held against the cold ones and against the engine on the
+    CPU exactly (Decimal for Decimal), and for q01, q06 and the min/max
+    against numpy int64. K10 and the 128-bit modes of K1 and K3 must have
+    been launched."""
     from decimal import Decimal
 
     from presto_tpu_torch.exec.engine import LocalEngine
 
     t = time.perf_counter()
-    mem = decimal_connector(conn)
     expected = decimal_numpy_reference(mem.table("lineitem"))
-    print(f"DECIMAL(12,2) lineitem at SF{SF} and its numpy reference in "
+    print(f"the DECIMAL(12,2) lineitem's numpy reference in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
     queries = decimal_queries()
     gpu = LocalEngine(mem)
@@ -1835,6 +2156,228 @@ def nested_path(conn, table, counters) -> dict:
               f"per run {names} cold {per_query[name][0]} warm "
               f"{per_query[name][1]}", flush=True)
     return launches
+
+
+def _np_f64_hash_lanes(v: np.ndarray) -> np.ndarray:
+    """approx_distinct's hash input of float64 values, in numpy uint64:
+    the exponent lane of floor(log2|v|) and the top 32 mantissa bits, by
+    an exact power of two (tags for NaN, +-inf, +-0; subnormals as 0)."""
+    v = np.where(np.abs(v) < 2.2250738585072014e-308, 0.0, v)
+    is_nan, is_inf = np.isnan(v), np.isinf(v)
+    ae = np.maximum(np.abs(np.where(is_nan | is_inf, 1.0, v)), 1e-300)
+    e = np.floor(np.log2(ae))
+    norm = ae * np.ldexp(1.0, (-e).astype(np.int64))
+    mant = (np.clip(norm - 1.0, 0.0, 1.0) * 2.0 ** 32).astype(np.uint64)
+    h = (e.astype(np.int64) + 2048).astype(np.uint64) \
+        * np.uint64(0x9E3779B97F4A7C15) ^ mant
+    h = np.where(v < 0, h ^ np.uint64(0xA5A5A5A5DEADBEEF), h)
+    h = np.where(v == 0.0, np.uint64(0x5E5E0000), h)
+    h = np.where(is_nan, np.uint64(0x7FF8000000000001), h)
+    h = np.where(is_inf & (v > 0), np.uint64(0x7FF0000000000000), h)
+    return np.where(is_inf & (v < 0), np.uint64(0xFFF0000000000000), h)
+
+
+def numpy_hll(v: np.ndarray, gid: np.ndarray, groups: int) -> np.ndarray:
+    """approx_distinct per group written anew in numpy, as an oracle for
+    the engine's exact output: splitmix64 over the value's bits (+
+    GOLDEN), register = the low 11 bits, rank from the float32 frexp of
+    the other 53, each register's largest rank, the harmonic-mean
+    estimate with the linear-counting correction, rounded; 0 for a group
+    without rows."""
+    with np.errstate(over="ignore"):
+        bits = (_np_f64_hash_lanes(v) if v.dtype.kind == "f"
+                else v.astype(np.int64).view(np.uint64))
+        x = bits + np.uint64(0x9E3779B97F4A7C15)
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        h = x ^ (x >> np.uint64(31))
+    w = h >> np.uint64(11)
+    _m, e = np.frexp(w.astype(np.float32))
+    rank = np.where(w == 0, 54, 54 - e.astype(np.int64))
+    regs = np.zeros(groups * 2048, np.int64)
+    np.maximum.at(regs, gid.astype(np.int64) * 2048
+                  + (h & np.uint64(2047)).astype(np.int64), rank + 1)
+    regs = regs.reshape(groups, 2048)
+    present = np.where(regs > 0, np.ldexp(1.0, -(regs - 1)), 0.0).sum(1)
+    zeros = 2048 - (regs > 0).sum(1)
+    m = 2048.0
+    raw = 0.7213 / (1.0 + 1.079 / m) * m * m / np.maximum(present + zeros,
+                                                          1e-12)
+    small = m * np.log(m / np.maximum(zeros, 1.0))
+    est = np.where((raw <= 2.5 * m) & (zeros > 0), small, raw)
+    return np.where(zeros == 2048, 0, np.round(est)).astype(np.int64)
+
+
+def _approx_rows(cols, keys, mask, outs) -> dict:
+    """An approx query's rows over numpy arrays `cols`, keyed by their
+    group key (`keys`: (column, its words or None)) over the rows where
+    `mask` (None: all): per output ("distinct", c) the exact distinct count
+    of c and numpy_hll's estimate, ("pct", p, c) the element
+    floor(p * (n - 1)) of the group's sorted values of c, ("count",) its
+    rows."""
+    m = np.ones(len(next(iter(cols.values()))), bool) if mask is None \
+        else mask
+    kc = [cols[c][m].astype(np.int64) for c, _w in keys]
+    code = np.zeros(int(m.sum()), np.int64)
+    for k in kc:
+        code = code * (int(k.max()) + 1) + k
+    uk, inv = np.unique(code, return_inverse=True)
+    counts = np.bincount(inv, minlength=len(uk))
+    starts = np.cumsum(counts) - counts
+    per = []
+    for o in outs:
+        if o[0] == "distinct":
+            _u, vi = np.unique(cols[o[1]][m], return_inverse=True)
+            w = int(vi.max()) + 1
+            pairs = np.unique(inv.astype(np.int64) * w + vi)
+            per.append(np.stack([
+                np.bincount(pairs // w, minlength=len(uk)),
+                numpy_hll(cols[o[1]][m], inv, len(uk))], axis=1))
+        elif o[0] == "pct":
+            v = cols[o[2]][m]
+            idx = starts + np.floor(o[1] * (counts - 1)).astype(np.int64)
+            per.append(v[np.lexsort((v, inv))][idx])
+        else:
+            per.append(counts)
+    first = np.zeros(len(uk), np.int64)
+    first[inv[::-1]] = np.arange(len(inv))[::-1]
+    rows = {}
+    for g in range(len(uk)):
+        key = tuple(words[k[first[g]]] if words else int(k[first[g]])
+                    for (_c, words), k in zip(keys, kc))
+        rows[key] = [x[g].tolist() for x in per]
+    return rows
+
+
+def approx_numpy_reference(conn) -> dict:
+    """a1-a5 over the generated arrays: name -> (number of key columns,
+    outputs, rows by key) as _approx_rows gives them."""
+    li, od = conn.table("lineitem"), conn.table("orders")
+    L = {c: v[:li.num_rows] for c, v in li.arrays.items()}
+    O = {c: v[:od.num_rows] for c, v in od.arrays.items()}
+    lw = {c: li.dicts[c].words for c in li.dicts}
+    ow = {c: od.dicts[c].words for c in od.dicts}
+    f = O["o_orderstatus"] == list(ow["o_orderstatus"]).index("F")
+    specs = {
+        "a1": (L, [], None, [("distinct", "l_partkey"),
+                             ("distinct", "l_extendedprice"),
+                             ("pct", 0.5, "l_quantity")]),
+        "a2": (L, [("l_returnflag", lw["l_returnflag"]),
+                   ("l_linestatus", lw["l_linestatus"])], None,
+               [("distinct", "l_orderkey"), ("pct", 0.9, "l_extendedprice"),
+                ("count",)]),
+        "a3": (L, [("l_suppkey", None)], None,
+               [("distinct", "l_partkey"), ("pct", 0.25, "l_discount")]),
+        "a4": (L, [("l_linenumber", None)], None,
+               [("distinct", "l_partkey"), ("pct", 0.5, "l_shipdate")]),
+        "a5": (O, [("o_orderpriority", ow["o_orderpriority"])], f,
+               [("distinct", "o_clerk"), ("distinct", "o_custkey")]),
+    }
+    return {name: (len(keys), outs, _approx_rows(cols, keys, mask, outs))
+            for name, (cols, keys, mask, outs) in specs.items()}
+
+
+def approx_check(name, rows, expected) -> np.ndarray:
+    """Holds a query's card rows against numpy: keys, counts, percentiles
+    and the distinct counts' sketch (numpy_hll) exact, and the root mean
+    square of the distinct counts' relative errors to the exact counts
+    within HLL_BOUND. Returns those relative errors."""
+    n_keys, outs, want = expected
+    got = {tuple(r[:n_keys]): r[n_keys:] for r in rows}
+    if set(got) != set(want):
+        fail(f"{name}: groups {sorted(got)[:3]} != numpy's "
+             f"{sorted(want)[:3]}")
+    errs = []
+    for key, w in want.items():
+        for o, x, y in zip(outs, got[key], w):
+            if o[0] != "distinct":
+                if x != y:
+                    fail(f"{name} {key}: {o} {x} != numpy's {y}")
+                continue
+            exact_count, sketch = y
+            if x != sketch:
+                fail(f"{name} {key}: approx_distinct({o[1]}) {x} != "
+                     f"numpy's sketch {sketch}")
+            errs.append(abs(x - exact_count) / max(exact_count, 1))
+    errs = np.array(errs)
+    if np.sqrt(np.mean(errs ** 2)) > HLL_BOUND:
+        fail(f"{name}: approx_distinct's root mean square relative error "
+             f"{np.sqrt(np.mean(errs ** 2)):.4f} > {HLL_BOUND:.4f}")
+    return errs
+
+
+def approx_path(conn, counters) -> dict:
+    """Phase 4e: a1-a5 (APPROX_QUERIES) over TPC-H SF1, cold and warm on
+    the card, with the kernels' launch counts set to 0 just before and
+    read just after; the warm rows held exactly against the cold ones and
+    against the engine on the CPU, and against numpy: percentiles exactly,
+    distinct counts exactly against numpy_hll and, as each query's root
+    mean square relative error, within HLL_BOUND of the exact counts. K12
+    and K13 must have been launched."""
+    from presto_tpu_torch.exec.engine import LocalEngine
+
+    t = time.perf_counter()
+    expected = approx_numpy_reference(conn)
+    print(f"a1-a5's numpy reference in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    gpu = LocalEngine(conn)
+    rows, walls, per_query, launches = _run_queries(
+        gpu, {name: (sql, False) for name, sql in APPROX_QUERIES.items()},
+        counters, "approx path", ["hll_registers", "segment_pick"])
+    cpu = LocalEngine(conn, device="cpu")
+    names = [k.__name__ for k in counters]
+    for name, sql in APPROX_QUERIES.items():
+        cold, warm = rows[name]
+        if sorted(cold) != sorted(warm):
+            fail(f"{name} approx: card cold rows differ from warm rows")
+        t = time.perf_counter()
+        want = cpu.execute_sql(sql)
+        cpu_s = time.perf_counter() - t
+        if sorted(warm) != sorted(want):
+            fail(f"{name} approx: card rows differ from the CPU's: "
+                 f"{sorted(warm)[:2]} != {sorted(want)[:2]}")
+        errs = approx_check(name, warm, expected[name])
+        shown = (f"each {[round(float(e), 5) for e in errs]}"
+                 if len(errs) <= 24 else
+                 f"99th percentile {np.quantile(errs, 0.99):.5f}, "
+                 f"{int((errs > HLL_BOUND).sum())} of {len(errs)} beyond "
+                 f"{HLL_BOUND:.4f}")
+        print(f"{name} approx: {len(warm)} rows equal the CPU's; "
+              f"percentiles and sketches equal numpy's; distinct counts' "
+              f"relative errors to the exact counts: root mean square "
+              f"{np.sqrt(np.mean(errs ** 2)):.5f} (bound {HLL_BOUND:.4f}), "
+              f"max {errs.max():.5f}, {shown}; card "
+              f"wall cold {walls[name][0] * 1e3:.1f} ms, warm "
+              f"{walls[name][1] * 1e3:.1f} ms; CPU {cpu_s:.2f} s; launches "
+              f"per run {names} cold {per_query[name][0]} warm "
+              f"{per_query[name][1]}", flush=True)
+    return launches
+
+
+def approx_phase(counters) -> None:
+    """The six queries of tests/test_approx_aggs.py (read from
+    tests/test_torch_approx.py, APPROX_TEST_QUERIES) at SQLITE_SF on the
+    card, cold and warm, against the port's CPU engine exactly: sqlite
+    has no sketch."""
+    from presto_tpu_torch.connectors import TpchConnector
+    from presto_tpu_torch.exec.engine import LocalEngine
+
+    queries = _literal_lists("test_torch_approx", (
+        "APPROX_TEST_QUERIES",))["APPROX_TEST_QUERIES"]
+    conn = TpchConnector(SQLITE_SF)
+    rows, walls, _per_query, launches = _run_queries(
+        LocalEngine(conn), {n: (q, False) for n, q in queries.items()},
+        counters, "approx phase", ["hll_registers", "segment_pick"])
+    cpu = LocalEngine(conn, device="cpu")
+    for name, sql in queries.items():
+        want = sorted(cpu.execute_sql(sql))
+        for run, got in zip(("cold", "warm"), rows[name]):
+            if sorted(got) != want:
+                fail(f"approx {name} card ({run}): {got} != CPU's {want}")
+        print(f"approx {name} SF{SQLITE_SF}: {len(want)} rows equal the "
+              f"CPU's; card wall cold {walls[name][0] * 1e3:.1f} ms, warm "
+              f"{walls[name][1] * 1e3:.1f} ms", flush=True)
+    print(f"approx phase launches: {launches}", flush=True)
 
 
 def docs_phase(counters) -> None:
@@ -1955,7 +2498,8 @@ def main() -> int:
     from presto_tpu_torch.data.column import compact_indices
     from presto_tpu_torch.data.int128 import int128_op
     from presto_tpu_torch.exec.engine import LocalEngine
-    from presto_tpu_torch.ops.aggregate import direct_agg
+    from presto_tpu_torch.ops.aggregate import direct_agg, hll_registers, \
+        segment_pick
     from presto_tpu_torch.ops.join import join_expand, join_probe
     from presto_tpu_torch.ops.keys import hash_columns, key_change_flags
     from presto_tpu_torch.connectors.tpch import nested_orders
@@ -1999,6 +2543,10 @@ def main() -> int:
     print(f"orders_nested at SF{SF}: built in "
           f"{time.perf_counter() - t0:.1f} s ({nested.num_rows} rows, "
           f"{nested_counts(nested)[0][1]} array elements)", flush=True)
+    t0 = time.perf_counter()
+    dec_conn = decimal_connector(conn)
+    print(f"DECIMAL(12,2) lineitem at SF{SF}: built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     rng = np.random.default_rng(SEED)
     ds_sql, _ = tpcds_queries()
@@ -2015,9 +2563,12 @@ def main() -> int:
               kernel_int128(rng, dev, REPEAT),
               kernel_direct_agg_sum128(rng, dev, REPEAT),
               kernel_segment_sum128(rng, dev, REPEAT),
-              kernel_unnest_expand(nested, dev, REPEAT)]
+              kernel_unnest_expand(nested, dev, REPEAT),
+              kernel_hll_registers(conn, dev, REPEAT),
+              kernel_segment_pick(conn, dev, REPEAT)]
     del q51_calls
-    torch_op_rows(conn, ds_conn, dev, REPEAT)
+    kernel_unnest_channels(dev, REPEAT)
+    torch_op_rows(conn, ds_conn, dec_conn, dev, REPEAT)
     torch.cuda.synchronize()
     print(f"phase 3: kernels hold against their plain versions "
           f"({time.perf_counter() - t_phase:.1f} s with the tables)",
@@ -2044,7 +2595,7 @@ def main() -> int:
         + counters
     calls.reset()
     t0 = time.perf_counter()
-    decimal = decimal_path(conn, decimal_counters)
+    decimal = decimal_path(dec_conn, decimal_counters)
     print(f"phase 4c: decimal path in {time.perf_counter() - t0:.1f} s; "
           f"launches {decimal}; torch-op stage calls {calls.counts}",
           flush=True)
@@ -2055,15 +2606,21 @@ def main() -> int:
     print(f"phase 4d: nested path in {time.perf_counter() - t0:.1f} s; "
           f"launches {unnest}; torch-op stage calls {calls.counts}",
           flush=True)
-    del nested
+    del nested, dec_conn
+    approx_counters = [hll_registers, segment_pick] + counters
+    calls.reset()
+    t0 = time.perf_counter()
+    approx = approx_path(conn, approx_counters)
+    print(f"phase 4e: approx path in {time.perf_counter() - t0:.1f} s; "
+          f"launches {approx}; torch-op stage calls {calls.counts}",
+          flush=True)
     for r in report:
-        r["launches"] = (launches.get(r["name"], 0)
-                         + breadth.get(r["name"], 0)
-                         + decimal.get(r["name"], 0)
-                         + unnest.get(r["name"], 0))
+        r["launches"] = sum(path.get(r["name"], 0) for path in (
+            launches, breadth, decimal, unnest, approx))
     t0 = time.perf_counter()
     sqlite_phase(counters)
     docs_phase(nested_counters)
+    approx_phase(approx_counters)
     print(f"phase 5: sqlite comparisons in {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s",

@@ -24,15 +24,14 @@
 #include <stdint.h>
 #include <math.h>
 
+#include "mix64.cuh"
+
 #define MAX_LANES 16   // = ops/keys.MAX_KEY_LANES
 #define HASH_THREADS 256
 
 enum { DT_F64 = 0, DT_I64 = 1, DT_I32 = 2, DT_BOOL = 3, DT_F32 = 4 };
 
-static const uint64_t GOLDEN = 0x9E3779B97F4A7C15ull;
 static const uint64_t NULL_TAG = 0x5BD1E995ull;
-// the smallest normal float64; smaller magnitudes hash as zero
-#define F64_MIN_NORMAL 2.2250738585072014e-308
 
 struct Lanes {
   const void* values[MAX_LANES];
@@ -40,32 +39,6 @@ struct Lanes {
   int dtype[MAX_LANES];
   int count;
 };
-
-static __device__ __forceinline__ uint64_t mix64(uint64_t x) {
-  x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ull;
-  x = (x ^ (x >> 27)) * 0x94D049BB133111EBull;
-  return x ^ (x >> 31);
-}
-
-static __device__ __forceinline__ uint64_t f64_hash_lane(double v) {
-  if (fabs(v) < F64_MIN_NORMAL) v = 0.0;
-  const bool is_nan = isnan(v);
-  const bool is_inf = isinf(v);
-  const double safe = (is_nan || is_inf) ? 1.0 : v;
-  const double ae = fmax(fabs(safe), 1e-300);
-  const double e = floor(log2(ae));
-  const double norm = ae * exp2(-e);
-  const double m = fmin(fmax(norm - 1.0, 0.0), 1.0) * 4294967296.0;
-  const uint64_t mant = (uint64_t)m;
-  const uint64_t eb = (uint64_t)((int64_t)e + 2048);
-  uint64_t h = (eb * GOLDEN) ^ mant;
-  if (v < 0) h ^= 0xA5A5A5A5DEADBEEFull;
-  if (v == 0.0) h = 0x5E5E0000ull;
-  if (is_nan) h = 0x7FF8000000000001ull;
-  if (is_inf && v > 0) h = 0x7FF0000000000000ull;
-  if (is_inf && v < 0) h = 0xFFF0000000000000ull;
-  return h;
-}
 
 static __device__ __forceinline__ uint64_t lane_bits(const void* values,
                                                      int dtype, int64_t i) {

@@ -56,7 +56,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "int128": {"int128_op": [_P, _P]},
     "unnest": {
         "unnest_expand": [_P, _I32, _I64, _P, _I64, _I64, _P, _P, _P, _P,
-                          _P, _P, _P, _P, _P]},
+                          _P, _P, _P, _P, _P, _P]},
+    "hll": {
+        "hll_direct": [_P, _I32, _P, _P, _I64, _I32, _P, _P, _P, _P],
+        "hll_sorted": [_P, _I32, _P, _I64, _P, _P, _I64, _P, _P, _P, _P]},
+    "percentile": {
+        "segment_pick": [_P, _I32, _I64, _P, _P, _I64, ctypes.c_double, _P,
+                         _P, _P]},
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

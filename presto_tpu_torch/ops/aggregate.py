@@ -19,9 +19,15 @@ bool_or, bool_and, and the DECIMAL(38) kinds sum128 and avg128: four int64
 limb sums per group (K1's and K3's 128-bit sum modes) and a count, into a
 Decimal128Column whose exact value the host recombines. Min and max over
 DECIMAL(p>18) inputs are exact lexicographic reductions over the
-normalized limbs, in torch ops. HyperLogLog (approx_distinct),
-approx_percentile and the distributed merges sum128_merge/avg128_merge
-raise NotImplementedError: later slices.
+normalized limbs, in torch ops. approx_distinct takes each group's
+HyperLogLog registers with the hand-written `hll_registers` kernel
+(csrc/hll.cu, K12; by bin on the direct path, by group run on the sorted
+path) and the JAX package's estimate; approx_percentile sorts each group's
+values (`lex_perm`) and picks the order statistic with the hand-written
+`segment_pick` kernel (csrc/percentile.cu, K13). Both raise
+NotImplementedError over a DECIMAL(38) input, as the JAX package does. The
+distributed merges sum128_merge/avg128_merge raise NotImplementedError: a
+later slice.
 
 Capacity contract as in the JAX package: the output page has capacity
 `out_capacity`; the true group count is returned unclamped so the executor
@@ -58,7 +64,8 @@ class AggSpec:
 
 _PORTED_KINDS = {"count_star", "count", "sum", "avg", "avg_partial",
                  "avg_final", "min", "max", "bool_or", "bool_and",
-                 "sum128", "avg128"}
+                 "sum128", "avg128", "approx_distinct", "approx_percentile"}
+_APPROX_KINDS = ("approx_distinct", "approx_percentile")
 _WIDE_KINDS = ("sum128", "avg128", "count", "min", "max")
 
 _DIRECT_MAX_BINS = 64
@@ -373,6 +380,262 @@ direct_agg.sum128_launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K12: hll_registers (approx_distinct)
+# ---------------------------------------------------------------------------
+
+_HLL_P = 11
+_HLL_M = 1 << _HLL_P
+_HLL_ALPHA = 0.7213 / (1.0 + 1.079 / _HLL_M)
+#: the most rows of a group one thread of K12's sorted mode dedupes
+#: (csrc/hll.cu SMALL_MAX)
+HLL_SMALL_MAX = 32
+#: rows of a larger group one block of K12 takes at a time (csrc/hll.cu
+#: PIECE)
+HLL_PIECE = 16384
+
+
+def _hll_reg_rank(vals: torch.Tensor):
+    """Per-row (register id int32, rank int32), as
+    presto_tpu/ops/aggregate.py:_hll_reg_rank (:71): h = mix64(bits +
+    GOLDEN) over the value's bits (integers sign-extended, floats through
+    f64_hash_lanes), the register its low 11 bits, and the rank
+    (64 - 11) - floor(log2(w)) of w = h >> 11, taken from the exponent of
+    w rounded to float32, as the JAX function takes it (the rounding
+    nudges the rank of about 2^-24 of the values; w == 0 ranks 54)."""
+    from presto_tpu_torch.ops.keys import (
+        _GOLDEN, _mix64, _srl, f64_hash_lanes,
+    )
+    if vals.is_floating_point():
+        bits = f64_hash_lanes(vals.to(torch.float64))
+    else:
+        bits = vals.to(torch.int64)
+    h = _mix64(bits + _GOLDEN)
+    reg = (h & (_HLL_M - 1)).to(torch.int32)
+    w = _srl(h, _HLL_P)
+    _mant, exp = torch.frexp(w.to(torch.float32))
+    rank = torch.where(w == 0, 64 - _HLL_P + 1,
+                       (64 - _HLL_P) - (exp - 1)).to(torch.int32)
+    return reg, rank
+
+
+def _hll_estimate(present_sum: torch.Tensor,
+                  zeros: torch.Tensor) -> torch.Tensor:
+    """Registers -> cardinality, as presto_tpu/ops/aggregate.py
+    :_hll_estimate (:99): the raw harmonic-mean estimate with the
+    linear-counting small-range correction, in the same order of
+    operations."""
+    m = float(_HLL_M)
+    zeros_f = zeros.to(torch.float64)
+    # a Python number over a tensor is a product with torch's reciprocal
+    # (rounded twice): divide tensor by tensor, as XLA divides
+    num = torch.full_like(zeros_f, _HLL_ALPHA * m * m)
+    raw = num / torch.clamp(present_sum + zeros_f, min=1e-12)
+    small = m * torch.log(torch.full_like(zeros_f, m)
+                          / torch.clamp(zeros_f, min=1.0))
+    use_small = (raw <= 2.5 * m) & (zeros > 0)
+    return torch.where(use_small, small, raw)
+
+
+def _pow2_neg(r: torch.Tensor) -> torch.Tensor:
+    """2.0 ** -r, exactly, for integer ranks 0 <= r <= 1022."""
+    return ((1023 - r.to(torch.int64)) << 52).view(torch.float64)
+
+
+def _hll_registers_plain(values, live, codes, bins, starts, ends):
+    """Plain PyTorch version of the hll_registers kernel: the rows' (group,
+    register, rank + 1) sorted by (group, register, rank descending), as
+    the JAX package sorts them, so the first of each (group, register) run
+    holds its register; present and count summed over those."""
+    dev = values.device
+    if codes is not None:
+        groups = bins
+        rows = torch.arange(values.shape[0], dtype=torch.int64, device=dev)
+        gid = codes.to(torch.int64)
+    else:
+        n, groups = values.shape[0], starts.shape[0]
+        s = starts.clamp(0, n)
+        lengths = torch.maximum(ends.clamp(0, n), s) - s
+        gid = torch.repeat_interleave(
+            torch.arange(groups, dtype=torch.int64, device=dev), lengths)
+        offsets = torch.cumsum(lengths, 0) - lengths
+        rows = (torch.repeat_interleave(s - offsets, lengths)
+                + torch.arange(gid.shape[0], dtype=torch.int64, device=dev))
+    keep = live[rows]
+    rows, gid = rows[keep], gid[keep]
+    reg, rank = _hll_reg_rank(values[rows])
+    slot = gid * _HLL_M + reg.to(torch.int64)
+    v = rank.to(torch.int64) + 1                # 0 marks an empty register
+    order = torch.sort(slot * 64 + (63 - v)).indices
+    slot, v = slot[order], v[order]
+    first = torch.ones_like(slot, dtype=torch.bool)
+    first[1:] = slot[1:] != slot[:-1]
+    slot, v = slot[first], v[first]
+    g = slot // _HLL_M
+    present = torch.zeros(groups, dtype=torch.float64, device=dev) \
+        .index_add_(0, g, _pow2_neg(v - 1))
+    count = torch.zeros(groups, dtype=torch.int64, device=dev) \
+        .index_add_(0, g, torch.ones_like(g))
+    regs = None
+    if codes is not None:
+        regs = torch.zeros(bins * _HLL_M, dtype=torch.int32, device=dev)
+        regs[slot] = v.to(torch.int32)
+        regs = regs.view(bins, _HLL_M)
+    return present, count, regs
+
+
+def hll_registers(values: torch.Tensor, live: torch.Tensor, *,
+                  codes: Optional[torch.Tensor] = None,
+                  bins: Optional[int] = None,
+                  starts: Optional[torch.Tensor] = None,
+                  ends: Optional[torch.Tensor] = None):
+    """Per group the HyperLogLog registers of approx_distinct over the
+    rows where `live` (kernel K12, csrc/hll.cu), and the two sums the
+    estimate takes: present (float64, the sum of 2^-rank over the
+    non-empty registers) and count (int64, the non-empty registers).
+    Values are float64, int64 or int32; each row's register and rank are
+    `_hll_reg_rank`'s.
+
+    Direct mode (`codes`, `bins`): the group of row i is its bin codes[i]
+    (int32 in [0, bins), bins <= 64). Returns (present [bins], count
+    [bins], registers [bins, 2048] int32 holding rank + 1, 0 if empty).
+    Sorted mode (`starts`, `ends`): group g is the row run [starts[g],
+    ends[g]) (empty where ends <= starts). Returns (present [G], count
+    [G], None).
+
+    On CPU tensors the plain version; on CUDA tensors the kernel."""
+    direct = codes is not None
+    if direct == (starts is not None) or (direct and bins is None) or (
+            not direct and ends is None):
+        raise ValueError("hll_registers: codes and bins, or starts and "
+                         "ends")
+    if values.dim() != 1 or values.dtype not in _DTYPE_CODES:
+        raise TypeError(f"hll_registers: values must be 1-d float64, int64 "
+                        f"or int32, got {values.dtype}")
+    n, dev = values.shape[0], values.device
+    if live.dtype != torch.bool or live.shape != (n,) or live.device != dev:
+        raise TypeError("hll_registers: live must be bool like values")
+    if direct:
+        if not 1 <= bins <= _DIRECT_MAX_BINS or codes.dtype != torch.int32 \
+                or codes.shape != (n,) or codes.device != dev:
+            raise TypeError(f"hll_registers: codes must be int32 like "
+                            f"values, 1 <= bins <= {_DIRECT_MAX_BINS}")
+    elif starts.dtype != torch.int64 or ends.dtype != torch.int64 \
+            or starts.shape != ends.shape or starts.dim() != 1 \
+            or starts.device != dev or ends.device != dev:
+        raise TypeError("hll_registers: starts/ends must be 1-d int64 of "
+                        "one length, on values' device")
+    if dev.type == "cpu":
+        return _hll_registers_plain(values, live, codes, bins, starts, ends)
+    if dev.type != "cuda":
+        raise RuntimeError(f"hll_registers: no kernel for {dev}")
+    from presto_tpu_torch import native
+    values, live = values.contiguous(), live.contiguous()
+    groups = bins if direct else starts.shape[0]
+    present = torch.empty(groups, dtype=torch.float64, device=dev)
+    count = torch.empty(groups, dtype=torch.int64, device=dev)
+    lib = native.load("hll")
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        if direct:
+            codes = codes.contiguous()
+            regs = torch.zeros((bins, _HLL_M), dtype=torch.int32, device=dev)
+            rc = lib.hll_direct(
+                ctypes.c_void_p(values.data_ptr()),
+                _DTYPE_CODES[values.dtype], ctypes.c_void_p(codes.data_ptr()),
+                ctypes.c_void_p(live.data_ptr()), n, bins,
+                ctypes.c_void_p(regs.data_ptr()),
+                ctypes.c_void_p(present.data_ptr()),
+                ctypes.c_void_p(count.data_ptr()), stream)
+        else:
+            regs = None
+            starts, ends = starts.contiguous(), ends.contiguous()
+            # the group lists, their lengths and the multi-piece groups'
+            # registers (csrc/hll.cu hll_sorted)
+            multi = n // HLL_PIECE + 1
+            scratch = torch.zeros(n // (HLL_SMALL_MAX + 1) + 1 + multi + 2
+                                  + multi * _HLL_M, dtype=torch.int32,
+                                  device=dev)
+            rc = lib.hll_sorted(
+                ctypes.c_void_p(values.data_ptr()),
+                _DTYPE_CODES[values.dtype], ctypes.c_void_p(live.data_ptr()),
+                n, ctypes.c_void_p(starts.data_ptr()),
+                ctypes.c_void_p(ends.data_ptr()), groups,
+                ctypes.c_void_p(scratch.data_ptr()),
+                ctypes.c_void_p(present.data_ptr()),
+                ctypes.c_void_p(count.data_ptr()), stream)
+    native.check(rc, "hll_registers", "hll")
+    hll_registers.launches += 1
+    return present, count, regs
+
+
+hll_registers.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K13: segment_pick (approx_percentile)
+# ---------------------------------------------------------------------------
+
+def _segment_pick_plain(values, starts, counts, p):
+    """Plain PyTorch version of the segment_pick kernel."""
+    n = values.shape[0]
+    idx = starts + torch.floor(
+        p * torch.clamp(counts - 1, min=0).to(torch.float64)
+    ).to(torch.int64)
+    idx = idx.clamp(0, max(n - 1, 0))
+    picked = values[idx] if n else torch.zeros(
+        starts.shape[0], dtype=values.dtype, device=values.device)
+    return picked, counts == 0
+
+
+def segment_pick(values: torch.Tensor, starts: torch.Tensor,
+                 counts: torch.Tensor, p: float):
+    """The order statistic of approx_percentile per group (kernel K13,
+    csrc/percentile.cu): over `values` sorted within each group, non-null
+    values first, group g takes values[starts[g] + floor(p * max(counts[g]
+    - 1, 0))] (in float64, clipped to the page), as
+    presto_tpu/ops/aggregate.py :392-414 and :737-760 take it. Returns
+    (picked [G] of values' dtype, null [G] bool: counts == 0). Values are
+    float64, int64 or int32; starts and counts int64.
+
+    On CPU tensors the plain version; on CUDA tensors the kernel."""
+    if values.dim() != 1 or values.dtype not in _DTYPE_CODES:
+        raise TypeError(f"segment_pick: values must be 1-d float64, int64 "
+                        f"or int32, got {values.dtype}")
+    dev = values.device
+    if starts.dtype != torch.int64 or counts.dtype != torch.int64 \
+            or starts.shape != counts.shape or starts.dim() != 1 \
+            or starts.device != dev or counts.device != dev:
+        raise TypeError("segment_pick: starts/counts must be 1-d int64 of "
+                        "one length, on values' device")
+    p = float(p)
+    if dev.type == "cpu":
+        return _segment_pick_plain(values, starts, counts, p)
+    if dev.type != "cuda":
+        raise RuntimeError(f"segment_pick: no kernel for {dev}")
+    from presto_tpu_torch import native
+    values = values.contiguous()
+    starts, counts = starts.contiguous(), counts.contiguous()
+    g = starts.shape[0]
+    picked = torch.empty(g, dtype=values.dtype, device=dev)
+    nulls = torch.empty(g, dtype=torch.bool, device=dev)
+    lib = native.load("percentile")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.segment_pick(
+            ctypes.c_void_p(values.data_ptr()), _DTYPE_CODES[values.dtype],
+            values.shape[0], ctypes.c_void_p(starts.data_ptr()),
+            ctypes.c_void_p(counts.data_ptr()), g, p,
+            ctypes.c_void_p(picked.data_ptr()),
+            ctypes.c_void_p(nulls.data_ptr()), ctypes.c_void_p(stream))
+    native.check(rc, "segment_pick", "percentile")
+    segment_pick.launches += 1
+    return picked, nulls
+
+
+segment_pick.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # the direct (small-domain) path
 # ---------------------------------------------------------------------------
 
@@ -424,7 +687,7 @@ def _input_plan(page: Page, aggs: Sequence[AggSpec]):
         want = (WANT_SUM128 if a.kind in ("sum128", "avg128") else
                 WANT_MINMAX if a.kind in ("min", "max", "bool_or",
                                           "bool_and") else
-                WANT_SUM if a.kind != "count" else 0)
+                0 if a.kind in ("count",) + _APPROX_KINDS else WANT_SUM)
         j = slot(("in", a.field, a.mask_field), vals, nulls, want)
         j2 = None
         if a.kind == "avg_final":
@@ -432,6 +695,26 @@ def _input_plan(page: Page, aggs: Sequence[AggSpec]):
             j2 = slot(("count", a.field2), c2.values, c2.nulls, WANT_SUM)
         per_agg.append((j, j2))
     return [tuple(x) for x in inputs], per_agg
+
+
+def _wide_minmax_direct(kind, lanes, live_rows, bin_code, prod: int):
+    """min/max over DECIMAL(p>18) per bin (presto_tpu/ops/aggregate.py
+    :317-340): each bin's live mask narrowed lane by lane over the
+    normalized limbs, most significant first. Returns (the winner's four
+    lanes, each [prod], and the live rows per bin)."""
+    live = [live_rows & (bin_code == b) for b in range(prod)]
+    n_per = torch.stack([lv.sum(dtype=torch.int64) for lv in live])
+    big = torch.iinfo(torch.int64).max
+    ident = big if kind == "min" else -big - 1
+    wins = []
+    for lane_v in I.normalize(lanes):
+        w = torch.stack([
+            torch.where(m, lane_v, ident).amin() if kind == "min"
+            else torch.where(m, lane_v, ident).amax()
+            for m in live])
+        live = [m & (lane_v == w[b]) for b, m in enumerate(live)]
+        wins.append(w)
+    return wins, n_per
 
 
 def _direct_grouped_aggregate(page: Page, group_fields: Sequence[int],
@@ -501,35 +784,56 @@ def _direct_grouped_aggregate(page: Page, group_fields: Sequence[int],
             None if count_bins is None else lane(count_bins))
 
     false_w = torch.zeros(width, dtype=torch.bool, device=dev)
-    valid = None
+    rows_bins = []
+
+    def row_bins():
+        """(valid rows under the fused mask, each row's bin code)"""
+        if not rows_bins:
+            valid = page.row_valid()
+            if row_mask is not None:
+                valid = valid & row_mask
+            rows_bins.extend((valid, _bin_codes(keys, domains, page.capacity,
+                                                dev)))
+        return rows_bins
+
     for a, (j, j2) in zip(aggs, per_agg):
         t = a.output_type
         kind = a.kind
         if kind == "count_star":
             cols.append(widen(counts, t, false_w))
             continue
+        if kind in _APPROX_KINDS:
+            valid, bin_code = row_bins()
+            vals, nulls = _agg_inputs(a, page)
+            live = valid & ~nulls
+            n_per = r["cnt"][j]
+            if kind == "approx_distinct":
+                # presto_tpu/ops/aggregate.py:368-391: never NULL, 0 for a
+                # bin without a live row
+                present, regs_on, _ = hll_registers(
+                    _kernel_values(vals), live, codes=bin_code, bins=prod)
+                est = _hll_estimate(present, _HLL_M - regs_on)
+                cols.append(widen(torch.where(n_per == 0, 0.0,
+                                              torch.round(est)),
+                                  t, false_w))
+                continue
+            # approx_percentile (:392-414): dead rows sort to bin `prod`,
+            # each bin's live values follow in SQL order
+            from presto_tpu_torch.ops.keys import _orderable_values, lex_perm
+            src = page.columns[a.field]
+            dictionary = src.dictionary if t.is_string else None
+            ov = _orderable_values(Column(vals, nulls, src.type, dictionary))
+            perm = lex_perm([torch.where(live, bin_code, prod), ov])
+            picked, pnull = segment_pick(
+                _kernel_values(vals)[perm], torch.cumsum(n_per, 0) - n_per,
+                n_per, 0.5 if a.param is None else a.param)
+            cols.append(widen(picked, t, pnull[take], dictionary))
+            continue
         if j is None:
-            # min/max over DECIMAL(p>18): narrow each bin's live mask lane
-            # by lane over the normalized limbs, most significant first
-            # (presto_tpu/ops/aggregate.py:317-340)
-            if valid is None:
-                valid = page.row_valid()
-                if row_mask is not None:
-                    valid = valid & row_mask
-                bin_code = _bin_codes(keys, domains, page.capacity, dev)
+            valid, bin_code = row_bins()
             lanes, nulls = _agg_inputs(a, page)
-            live = [valid & (bin_code == b) & ~nulls for b in range(prod)]
-            n_per = torch.stack([lv.sum(dtype=torch.int64) for lv in live])
-            big = torch.iinfo(torch.int64).max
-            ident = big if kind == "min" else -big - 1
-            wins = []
-            for lane_v in I.normalize(lanes):
-                w = torch.stack([
-                    torch.where(m, lane_v, ident).amin() if kind == "min"
-                    else torch.where(m, lane_v, ident).amax()
-                    for m in live])
-                live = [m & (lane_v == w[b]) for b, m in enumerate(live)]
-                wins.append(w)
+            wins, n_per = _wide_minmax_direct(kind, lanes, valid & ~nulls,
+                                              bin_code, prod)
             cols.append(widen_wide(wins, (n_per == 0)[take]))
             continue
         n_per = r["cnt"][j]
@@ -730,6 +1034,27 @@ def _eval_agg_sorted(a: AggSpec, sp: Page, gvalid, flags, starts, ends,
     if kind == "count":
         return [out(seg(key, vals[3] if wide else vals, ~nulls, 0)["cnt"],
                     zeros)]
+    if kind == "approx_distinct":
+        # presto_tpu/ops/aggregate.py:710-735: K12 over the page's group
+        # runs (no re-sort); 0 for a group without a live row (whose
+        # registers are all empty: a live row fills one), never NULL
+        present, regs_on, _ = hll_registers(_kernel_values(vals), ~nulls,
+                                            starts=starts, ends=ends)
+        est = _hll_estimate(present, _HLL_M - regs_on)
+        return [out(torch.where(regs_on == 0, 0.0, torch.round(est)),
+                    zeros)]
+    if kind == "approx_percentile":
+        # :737-760: each group's rows by (NULL last, SQL order), then K13
+        from presto_tpu_torch.ops.keys import _orderable_values, lex_perm
+        v = _orderable_values(Column(vals, nulls, sp.columns[a.field].type,
+                                     dictionary))
+        gid = torch.cumsum((flags & gvalid).to(torch.int64), 0)
+        perm = lex_perm([gid, nulls.to(torch.int8), v])
+        picked, pnull = segment_pick(
+            _kernel_values(vals)[perm], starts,
+            seg(key, vals, ~nulls, 0)["cnt"],
+            0.5 if a.param is None else a.param)
+        return [out(picked, pnull)]
     if kind in ("sum128", "avg128"):
         # DECIMAL(38): four limb sums per segment (K3's 128-bit mode);
         # the exact value recombines on the host

@@ -23,8 +23,8 @@ import torch
 from presto_tpu_torch.data.column import Column, NestedColumn, Page
 from presto_tpu_torch.types import BIGINT
 
-#: the most unnest channels K11 takes (csrc/unnest.cu); the plain
-#: version takes any number
+#: the unnest channels one launch of K11's passes reads (csrc/unnest.cu);
+#: more channels take more launches, so both versions take any number
 MAX_CHANNELS = 8
 #: rows per tile of K11's prefix sum (csrc/unnest.cu UX_TILE)
 EXPAND_TILE = 2048
@@ -78,8 +78,8 @@ def unnest_expand(starts: Sequence[torch.Tensor],
                   lengths: Sequence[torch.Tensor],
                   nulls: Sequence[torch.Tensor], num_rows: torch.Tensor,
                   out_capacity: int, with_ordinality: bool):
-    """The output layout of UNNEST (kernel K11, csrc/unnest.cu, which
-    takes up to MAX_CHANNELS channels). Per channel c: `starts[c]`, `lengths[c]` (int32) and
+    """The output layout of UNNEST (kernel K11, csrc/unnest.cu). Per
+    channel c: `starts[c]`, `lengths[c]` (int32) and
     `nulls[c]` (bool), one entry per source row; `num_rows` is the page's
     0-d int64 row count.
 
@@ -94,8 +94,7 @@ def unnest_expand(starts: Sequence[torch.Tensor],
     the caller can see an overflow). Dead slots (j >= total) hold 0 and
     False.
 
-    On CPU tensors the plain version; on CUDA tensors the kernel, which
-    raises NotImplementedError beyond MAX_CHANNELS channels."""
+    On CPU tensors the plain version; on CUDA tensors the kernel."""
     nch = len(lengths)
     if nch < 1 or len(starts) != nch or len(nulls) != nch:
         raise ValueError(f"unnest_expand: one or more channels of starts, "
@@ -120,21 +119,17 @@ def unnest_expand(starts: Sequence[torch.Tensor],
                                     out_capacity, with_ordinality)
     if dev.type != "cuda":
         raise RuntimeError(f"unnest_expand: no kernel for {dev}")
-    if nch > MAX_CHANNELS:
-        raise NotImplementedError(
-            f"unnest_expand: UNNEST over {nch} columns on the card (the "
-            f"kernel takes up to {MAX_CHANNELS})")
     from presto_tpu_torch import native
     starts = [t.contiguous() for t in starts]
     lengths = [t.contiguous() for t in lengths]
     nulls = [t.contiguous() for t in nulls]
     num_rows = num_rows.reshape(()).contiguous()
-    ptrs = (ctypes.c_void_p * (3 * MAX_CHANNELS))()
-    for c in range(nch):
-        ptrs[c] = starts[c].data_ptr()
-        ptrs[MAX_CHANNELS + c] = lengths[c].data_ptr()
-        ptrs[2 * MAX_CHANNELS + c] = nulls[c].data_ptr()
+    ptrs = (ctypes.c_void_p * (3 * nch))(
+        *[t.data_ptr() for t in (*starts, *lengths, *nulls)])
     cum = torch.empty(max(cap, 1), dtype=torch.int64, device=dev)
+    # channels past the first MAX_CHANNELS: their per-row maximum
+    extra = (torch.empty(max(cap, 1), dtype=torch.int64, device=dev)
+             if nch > MAX_CHANNELS else None)
     tiles = torch.empty(max((cap + EXPAND_TILE - 1) // EXPAND_TILE, 1),
                         dtype=torch.int64, device=dev)
     total = torch.empty((), dtype=torch.int64, device=dev)
@@ -153,6 +148,7 @@ def unnest_expand(starts: Sequence[torch.Tensor],
             BIGINT.null_sentinel(),
             ctypes.c_void_p(cum.data_ptr()),
             ctypes.c_void_p(tiles.data_ptr()),
+            ctypes.c_void_p(extra.data_ptr() if extra is not None else 0),
             ctypes.c_void_p(total.data_ptr()),
             ctypes.c_void_p(parent.data_ptr()),
             ctypes.c_void_p(out_valid.data_ptr()),

@@ -10,8 +10,9 @@ query at SF1 (`breadth_queries()`; that one returns 1.5M rows and is
 timed to its result page on the card, without the conversion to Python
 rows) and the decimal path's TPC-H q01, q03, q06, q10 and q19 over SF1
 lineitem with DECIMAL(12,2) money columns (`decimal_queries()`, named
-dec_q01 ..) and the nested path's UNNEST queries n1-n4 over the SF1
-orders_nested table (`nested_queries()`) through presto_tpu_torch's
+dec_q01 ..), the nested path's UNNEST queries n1-n4 over the SF1
+orders_nested table (`nested_queries()`) and the approx path's a1-a5
+over TPC-H SF1 (`APPROX_QUERIES`) through presto_tpu_torch's
 LocalEngine on the card (--only limits the run to the named queries):
 once cold (column uploads, capacity retries), WARM times warm and timed,
 once warm under torch.profiler. Prints per query the median warm wall time,
@@ -35,9 +36,9 @@ import sys
 import time
 from pathlib import Path
 
-from chip_smoke import SF, TPCDS_SF, breadth_queries, card_line, \
-    decimal_connector, decimal_queries, main_queries, nested_connector, \
-    nested_queries, run_query
+from chip_smoke import APPROX_QUERIES, SF, TPCDS_SF, breadth_queries, \
+    card_line, decimal_connector, decimal_queries, main_queries, \
+    nested_connector, nested_queries, run_query
 
 TOP = 8        # heaviest device kernels listed per query
 WARM = 7       # timed warm runs per query (median reported)
@@ -145,6 +146,8 @@ def main() -> int:
     result = {"card": card, "sf": SF, "tpcds_sf": TPCDS_SF, "queries": {}}
     runs = [(name, engine, sql, False)
             for name, (sql, _ordered) in main_queries().items()]
+    runs += [(name, engine, sql, False)
+             for name, sql in APPROX_QUERIES.items()]
     breadth = breadth_queries(ds_engine, engine)
     runs += [(name, breadth[name][0], breadth[name][1], breadth[name][3])
              for name in BREADTH]

@@ -147,12 +147,15 @@ def test_checked_arithmetic_matches_jax(engines, case):
 
 
 def test_join_raises_not_implemented(engines):
-    """Joins run since the second slice and windows since the third; a
-    part still unported (approx_distinct's HyperLogLog here) raises
-    NotImplementedError naming a later slice."""
+    """Joins, windows and the approximate aggregates run; a part still
+    unported (materialized CTEs here) raises NotImplementedError naming a
+    later slice."""
+    from presto_tpu_torch.config import Session
     _ref, port = engines
     with pytest.raises(NotImplementedError, match="later slice"):
-        port.execute_sql("select approx_distinct(n_name) from nation")
+        LocalEngine(port.connector,
+                    session=Session({"cte_materialization_enabled": "true"}),
+                    device="cpu")
 
 
 def test_engine_needs_a_card_unless_given_the_cpu(monkeypatch):

@@ -11,7 +11,8 @@ machine has no JAX; this file imports none.)
 
 Tolerances: counts, indices, hashes, join pairs and flags, scans other
 than float64 sums, window outputs other than float64 sums and averages,
-int64 sums, min and max exact; float64 sums within 1e-9 relative (the
+int64 sums, min and max, HyperLogLog registers, present sums and counts
+(sums of powers of two, exact in any order) and order statistics exact; float64 sums within 1e-9 relative (the
 kernels sum in another order than the plain versions).
 """
 
@@ -632,14 +633,43 @@ def test_unnest_expand_kernel_matches_plain(cuda, cap, num_rows, nch,
             _same(g, p)
 
 
-def test_unnest_expand_kernel_raises_beyond_eight_channels(cuda):
-    """The kernel takes up to eight channels; a ninth raises on the card
-    (the plain version takes any number)."""
+@pytest.mark.parametrize("nch", [9, 12])
+def test_unnest_expand_kernel_beyond_eight_channels_matches_plain(cuda,
+                                                                  nch):
+    """More channels than one launch reads (MAX_CHANNELS): the counts
+    take every channel and the slot pass runs per group of eight."""
     from presto_tpu_torch.ops import unnest as U
-    st, ln, nl = _unnest_channels(np.random.default_rng(61), 64, 9, cuda)
-    with pytest.raises(NotImplementedError):
-        U.unnest_expand(st, ln, nl, torch.tensor(64, device=cuda), 1024,
-                        False)
+    rng = np.random.default_rng(61)
+    st, ln, nl = _unnest_channels(rng, 50_000, nch, "cpu")
+    n = torch.tensor(41_234, dtype=torch.int64)
+    plain = U.unnest_expand(st, ln, nl, n, 1 << 19, True)
+    before = U.unnest_expand.launches
+    got = U.unnest_expand([t.to(cuda) for t in st], [t.to(cuda) for t in ln],
+                          [t.to(cuda) for t in nl], n.to(cuda), 1 << 19,
+                          True)
+    torch.cuda.synchronize()
+    assert U.unnest_expand.launches == before + 1
+    for g, p in zip(got, plain):
+        _same(g, p)
+
+
+def test_nine_column_unnest_on_the_card_matches_the_cpu(cuda):
+    from presto_tpu_torch.connectors import MemoryConnector
+    from presto_tpu_torch.exec.engine import LocalEngine
+    mem = MemoryConnector()
+    mem.create("nine", [("id", T.BIGINT)]
+               + [(f"a{i}", T.ArrayType(T.BIGINT)) for i in range(9)])
+    rng = np.random.default_rng(67)
+    mem.append_rows("nine", [
+        (i, *[None if rng.random() < 0.1 else
+              [int(v) for v in rng.integers(0, 50, rng.integers(0, 6))]
+              for _ in range(9)]) for i in range(500)])
+    xs = ", ".join(f"x{i}" for i in range(9))
+    sql = (f"SELECT id, {xs} FROM nine CROSS JOIN UNNEST("
+           + ", ".join(f"a{i}" for i in range(9)) + f") AS t({xs}) "
+           f"ORDER BY id, x0, x1, x2, x3, x4, x5, x6, x7, x8")
+    got = LocalEngine(mem).execute_sql(sql)
+    assert got and got == LocalEngine(mem, device="cpu").execute_sql(sql)
 
 
 def test_unnest_on_the_card_matches_the_cpu(cuda):
@@ -669,3 +699,97 @@ def test_unnest_on_the_card_matches_the_cpu(cuda):
         got = gpu.execute_sql(sql)
         assert got == cpu.execute_sql(sql) and got
     assert U.unnest_expand.launches > before
+
+
+def _hll_values(rng, n, dtype):
+    """Seeded K12 inputs with repeats; int64 ones include the values whose
+    hash has w = 2^k - 1 (chip_smoke.hll_boundary_values), where the
+    float32 rounding moves the rank."""
+    from chip_smoke import hll_boundary_values
+    if dtype == torch.float64:
+        v = np.round(rng.random(n) * 1e5, 2)
+    else:
+        v = rng.integers(-10 ** 6, 10 ** 6, n)
+        v[:216] = np.concatenate([hll_boundary_values(range(54), r)
+                                  for r in (0, 3, 1000, 2047)])
+    return torch.from_numpy(v).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32, torch.float64])
+@pytest.mark.parametrize("bins", [1, 12, 64])
+def test_hll_registers_direct_kernel_matches_plain(cuda, dtype, bins):
+    rng = np.random.default_rng(71)
+    n = 1 << 20
+    vals = _hll_values(rng, n, dtype)
+    live = torch.from_numpy(rng.random(n) < 0.9)
+    codes = torch.from_numpy(rng.integers(0, bins, n).astype(np.int32))
+    plain = A.hll_registers(vals, live, codes=codes, bins=bins)
+    before = A.hll_registers.launches
+    got = A.hll_registers(vals.to(cuda), live.to(cuda),
+                          codes=codes.to(cuda), bins=bins)
+    torch.cuda.synchronize()
+    assert A.hll_registers.launches == before + 1
+    for g, p in zip(got, plain):
+        _same(g, p)
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.float64])
+def test_hll_registers_sorted_kernel_matches_plain(cuda, dtype):
+    """One-row groups, groups of up to 32 rows, of hundreds, of more than
+    a piece (split across blocks), an empty group and groups past the
+    group count."""
+    rng = np.random.default_rng(73)
+    lengths = np.concatenate([
+        np.ones(200_000, np.int64), rng.integers(2, 33, 20_000),
+        rng.integers(33, 3000, 300), [0],
+        [A.HLL_PIECE, A.HLL_PIECE + 1, 300_000, 861_000]])
+    rng.shuffle(lengths)
+    ends = np.cumsum(lengths)
+    starts = ends - lengths
+    n = int(ends[-1]) + 1000
+    pad = 5000
+    starts = torch.from_numpy(np.concatenate([starts, np.full(pad, 7)]))
+    ends = torch.from_numpy(np.concatenate([ends, np.full(pad, 7)]))
+    vals = _hll_values(rng, n, dtype)
+    live = torch.from_numpy(rng.random(n) < 0.95)
+    plain = A.hll_registers(vals, live, starts=starts, ends=ends)
+    before = A.hll_registers.launches
+    got = A.hll_registers(vals.to(cuda), live.to(cuda),
+                          starts=starts.to(cuda), ends=ends.to(cuda))
+    torch.cuda.synchronize()
+    assert A.hll_registers.launches == before + 1
+    _same(got[0], plain[0])
+    _same(got[1], plain[1])
+
+
+@pytest.mark.parametrize("p", [0.0, 0.25, 0.5, 0.9, 1.0])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float64])
+def test_segment_pick_kernel_matches_plain(cuda, p, dtype):
+    rng = np.random.default_rng(79)
+    counts = torch.from_numpy(rng.integers(0, 50, 100_000))
+    starts = torch.cumsum(counts, 0) - counts
+    vals = torch.from_numpy(np.sort(rng.integers(
+        -10 ** 6, 10 ** 6, int(counts.sum()) + 3))).to(dtype)
+    plain = A.segment_pick(vals, starts, counts, p)
+    before = A.segment_pick.launches
+    got = A.segment_pick(vals.to(cuda), starts.to(cuda), counts.to(cuda), p)
+    torch.cuda.synchronize()
+    assert A.segment_pick.launches == before + 1
+    _same(got[1], plain[1])
+    _same(got[0][~plain[1].to(cuda)], plain[0][~plain[1]])
+
+
+def test_approx_queries_on_the_card_match_the_cpu(cuda):
+    """chip_smoke.py's a1-a5 at SF 0.01: the card's rows equal the CPU's,
+    K12 and K13 launched."""
+    from chip_smoke import APPROX_QUERIES
+    from presto_tpu_torch.connectors import TpchConnector
+    from presto_tpu_torch.exec.engine import LocalEngine
+    conn = TpchConnector(0.01)
+    gpu, cpu = LocalEngine(conn), LocalEngine(conn, device="cpu")
+    before = (A.hll_registers.launches, A.segment_pick.launches)
+    for sql in APPROX_QUERIES.values():
+        got = gpu.execute_sql(sql)
+        assert got and sorted(got) == sorted(cpu.execute_sql(sql))
+    assert A.hll_registers.launches > before[0]
+    assert A.segment_pick.launches > before[1]
