@@ -12,7 +12,11 @@ Phases, each fatal on failure, each printing its seconds:
      lineitems); each kernel (K1 direct_agg, K2 compact_indices, K3
      segment_reduce, K4 hash_columns, K5 join_probe, K6 join_expand, K7
      segmented_scan, K8 key_change_flags, K9 window_frame, K10 int128_op,
-     the 128-bit sum modes of K1 and K3, K11 unnest_expand on the
+     the 128-bit sum modes of K1 and K3; K2 also at the HAVING
+     filter's 2,097,152 flags and K3 also at a4's and n2's seven 0.86M-row
+     groups and at the largest of TPC-DS q67's calls, captured while q67
+     runs on the card, each on a line of its own, K3's float sums of two
+     launches held bit for bit; K11 unnest_expand on the
      nested orders' l_partkeys and l_returned with the ordinality, at the
      capacity the executor gives that unnest, and on 9 and 12 seeded
      channels, K12 hll_registers in direct mode on a2's and a1's columns
@@ -34,7 +38,9 @@ Phases, each fatal on failure, each printing its seconds:
      double within 1e-15, since torch divides by a scalar through its
      reciprocal), and
      timed with CUDA events beside the plain version, one PyTorch library
-     call where one computes the same function, and the card's bound; K5's
+     call where one computes the same function (K2: a stable descending
+     torch.sort of the flags, and torch.nonzero on a line of its own; K3:
+     torch.segment_reduce over the live values), and the card's bound; K5's
      merge-path modes, K7's other scans and K9's other window functions
      are printed on lines of their own;
   4. the main paths at SF1, each with the kernels' launch counts set to 0
@@ -460,10 +466,20 @@ def kernel_direct_agg(rng, dev, repeat):
             "library_ms": cuda_time_ms(library, repeat)}
 
 
+def _stable_sort(keep):
+    """The library call that computes K2's permutation: a stable
+    descending sort of the flags (`torch.sort`), its indices."""
+    import torch
+    return torch.sort(keep, descending=True, stable=True).indices
+
+
 def kernel_compact(rng, dev, repeat):
     """K2 at the q18 block's SF1 shape: group starts over an 8M-row
-    sorted page (6.0M valid rows, 1.5M group starts); checked also at the
-    HAVING filter's shape (1.5M groups in a 2M-row page)."""
+    sorted page (6.0M valid rows, 1.5M group starts), and at the HAVING
+    filter's shape (2,097,152 flags, 0.04% of the first 1.5M rows kept),
+    timed on a line of its own. Library yardsticks: a stable descending
+    `torch.sort` of the flags, whose indices are K2's permutation, and
+    `torch.nonzero` (the survivors alone), on a line of its own."""
     import torch
     from presto_tpu_torch.data import column as C
     cap, n = 8_388_608, 6_001_215
@@ -483,6 +499,8 @@ def kernel_compact(rng, dev, repeat):
     (kp, kc), (pp, pc) = kernel(), plain()
     if not (exact(kp, pp) and exact(kc, pc)):
         fail("compact_indices differs from the plain version (8M flags)")
+    if not exact(_stable_sort(keep), pp):
+        fail("the stable sort of the flags is not K2's permutation")
     g_cap, g_n = 2_097_152, 1_500_000
     keep2 = torch.from_numpy(rng.random(g_cap) < 0.0004).to(dev)
     nr2 = torch.tensor(g_n, dtype=torch.int64, device=dev)
@@ -490,26 +508,159 @@ def kernel_compact(rng, dev, repeat):
     (pp2, pc2) = C._compact_indices_plain(keep2, nr2)
     if not (exact(kp2, pp2) and exact(kc2, pc2)):
         fail("compact_indices differs from the plain version (HAVING)")
-
-    def library():
-        torch.nonzero(keep)
-
+    # the flags below num_rows read once (1 B/row; a row past it is a
+    # non-survivor whatever its flag), the permutation written (8 B/row)
+    bound2 = (g_n + 8 * g_cap) / HBM_BYTES_PER_S * 1e3
+    keep2_rows = keep2 & (torch.arange(g_cap, device=dev) < g_n)
+    print(f"compact_indices at the HAVING shape ({g_cap} flags, "
+          f"{int(kc2)} kept): "
+          f"{cuda_time_ms(lambda: C.compact_indices(keep2, nr2), repeat):.4f}"
+          f" ms, plain "
+          f"{cuda_time_ms(lambda: C._compact_indices_plain(keep2, nr2), repeat):.4f}"
+          f" ms, stable sort "
+          f"{cuda_time_ms(lambda: _stable_sort(keep2_rows), repeat):.4f} ms,"
+          f" nonzero "
+          f"{cuda_time_ms(lambda: torch.nonzero(keep2_rows), repeat):.4f} ms,"
+          f" bound {bound2:.4f} ms", flush=True)
+    print(f"compact_indices at 8M flags: nonzero "
+          f"{cuda_time_ms(lambda: torch.nonzero(keep), repeat):.4f} ms",
+          flush=True)
     return {"name": "compact_indices", "route": "cuda",
             "source": "presto_tpu_torch/csrc/compact.cu",
             "replaces": "presto_tpu/data/column.py:760",
             "max_abs_err": 0.0,
             "ms": cuda_time_ms(kernel, repeat),
             "plain_ms": cuda_time_ms(plain, repeat),
-            # keep read once (1 B/row), the permutation written (8 B/row)
             "bound_ms": cap * 9 / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
-            "library_ms": cuda_time_ms(library, repeat)}
+            "library_ms": cuda_time_ms(lambda: _stable_sort(keep), repeat)}
 
 
-def kernel_segment_reduce(rng, dev, repeat):
-    """K3 at the q18 block's SF1 shape: float64 l_quantity sorted by
-    order key, 1.5M segments of 1-7 rows among 2M segment slots."""
+def _segment_bytes(values, live, starts, ends, want) -> int:
+    """K3's bytes on these inputs: each row of a segment read once (its
+    value or four limbs, and its live flag), each segment's start and end
+    read and its results written once."""
     import torch
+    from presto_tpu_torch.ops import scan as S
+    lanes = values if isinstance(values, tuple) else (values,)
+    n = lanes[0].shape[0]
+    s = starts.clamp(0, n)
+    rows = int((torch.maximum(ends.clamp(0, n), s) - s).sum())
+    row = sum(x.element_size() for x in lanes) + (live is not None)
+    out = 8                                              # cnt
+    if want == S.WANT_SUM128:
+        out += 32
+    else:
+        if want & S.WANT_SUM:
+            out += 8 if lanes[0].dtype == torch.float64 else 16
+        if want & S.WANT_MINMAX:
+            out += 16
+    return rows * row + starts.shape[0] * (16 + out)
+
+
+def _segment_case(what, vals, live, starts, ends, want, repeat):
+    """K3 on one shape against its plain version (counts, integer sums,
+    min and max exact, float sums within RTOL_SUM; two launches' float
+    sums bit for bit the same), timed beside it and beside one
+    `torch.segment_reduce` over the same live values (segments contiguous
+    from row 0), with its bound. Returns (max abs error, times)."""
+    import torch
+    from presto_tpu_torch.ops import scan as S
+    k = S.segment_reduce(vals, live, starts, ends, want)
+    p = S._segment_reduce_plain(vals, live, starts, ends, want)
+    err = 0.0
+    for name, got in k.items():
+        if name == "fsum":
+            err = max(err, close(got, p[name], RTOL_SUM))
+        elif not exact(got, p[name]):
+            fail(f"segment_reduce {name} differs from the plain version "
+                 f"({what})")
+    if "fsum" in k:
+        again = S.segment_reduce(vals, live, starts, ends, want)["fsum"]
+        if not torch.equal(again.view(torch.int64),
+                           k["fsum"].view(torch.int64)):
+            fail(f"segment_reduce float sums differ between two launches "
+                 f"({what})")
+    n = vals.shape[0]
+    s = starts.clamp(0, n)
+    lengths = torch.maximum(ends.clamp(0, n), s) - s
+    total = int(lengths.sum())
+    data = vals.to(torch.float64) if live is None else \
+        torch.where(live, vals.to(torch.float64), 0.0)
+    data = data[:total].contiguous()
+    # the non-empty segments tile rows [0, total) in segment order
+    s_ne, l_ne = s[lengths > 0], lengths[lengths > 0]
+    contiguous = s_ne.numel() == 0 or (bool(s_ne[0] == 0) and bool(
+        (s_ne[1:] == (s_ne + l_ne)[:-1]).all()))
+    times = {"ms": cuda_time_ms(
+                 lambda: S.segment_reduce(vals, live, starts, ends, want),
+                 repeat),
+             "plain_ms": cuda_time_ms(
+                 lambda: S._segment_reduce_plain(vals, live, starts, ends,
+                                                 want), max(repeat // 4, 2)),
+             "bound_ms": _segment_bytes(vals, live, starts, ends, want)
+             / HBM_BYTES_PER_S * 1e3,
+             "library_ms": cuda_time_ms(
+                 lambda: torch.segment_reduce(data, "sum", lengths=lengths),
+                 repeat) if contiguous else None}
+    return err, times
+
+
+def _seven_groups(rng, dev):
+    """a4's and n2's shape: lineitem's 6.0M live rows of an 8,388,608-row
+    page sorted by l_linenumber, seven segments of 0.21M-1.5M rows (0.86M
+    on average) among 1,024 group slots; float64 values."""
+    import torch
+    cap, g_cap = 8_388_608, 1024
+    lines = rng.integers(1, 8, 1_500_000)
+    lengths = np.array([(lines >= k).sum() for k in range(1, 8)])
+    ends_np = np.cumsum(lengths)
+    n = int(ends_np[-1])
+    pad = g_cap - 7
+    starts = torch_from(np.concatenate([ends_np - lengths,
+                                        np.full(pad, n)]), dev)
+    ends = torch_from(np.concatenate([ends_np, np.full(pad, n)]), dev)
+    vals = torch_from(rng.integers(1, 51, cap).astype(np.float64), dev)
+    live = torch.arange(cap, device=dev) < n
+    return vals, live, starts, ends
+
+
+def capture_segment_reduce(engine, sql: str) -> list:
+    """The K3 calls (values, live, starts, ends, want) a query makes,
+    recorded while it runs on `engine`. The wrapper counts its launches
+    on the module's `segment_reduce`, the recorder while it stands
+    there."""
+    from presto_tpu_torch.ops import scan as S
+    calls = []
+    orig = S.segment_reduce
+
+    def record(values, live, starts, ends, want=S.WANT_SUM):
+        calls.append((values, live, starts, ends, want))
+        return orig(values, live, starts, ends, want)
+
+    record.launches = orig.launches
+    record.sum128_launches = orig.sum128_launches
+    S.segment_reduce = record
+    try:
+        engine.execute_sql(sql)
+    finally:
+        S.segment_reduce = orig
+        orig.launches = record.launches
+        orig.sum128_launches = record.sum128_launches
+    return calls
+
+
+def kernel_segment_reduce(rng, dev, ds_conn, repeat):
+    """K3 at the q18 block's SF1 shape (the kernel line): float64
+    l_quantity sorted by order key, 1.5M segments of 1-7 rows among 2M
+    segment slots. On lines of their own: a4's and n2's seven 0.86M-row
+    groups (_seven_groups, WANT_SUM), and the largest of TPC-DS q67's K3
+    calls at SF1, captured while q67 runs on the card (each call's
+    segments, rows, longest segment and segments past one piece are
+    printed)."""
+    import torch
+    from presto_tpu_torch import native
+    from presto_tpu_torch.exec.engine import LocalEngine
     from presto_tpu_torch.ops import scan as S
     cap, g_cap = 8_388_608, 2_097_152
     lines = rng.integers(1, 8, 1_500_000)
@@ -524,40 +675,54 @@ def kernel_segment_reduce(rng, dev, repeat):
     vals = torch.from_numpy(rng.integers(1, 51, cap).astype(np.float64)
                             ).to(dev)
     live = torch.arange(cap, device=dev) < n
-
-    def kernel():
-        return S.segment_reduce(vals, live, starts, ends, S.WANT_SUM)
-
-    def plain():
-        return S._segment_reduce_plain(vals, live, starts, ends, S.WANT_SUM)
-
-    k, p = kernel(), plain()
-    if not exact(k["cnt"], p["cnt"]):
-        fail("segment_reduce counts differ from the plain version")
-    err = close(k["fsum"], p["fsum"], RTOL_SUM)
+    err, q18 = _segment_case("q18 block", vals, live, starts, ends,
+                             S.WANT_SUM, repeat)
     km = S.segment_reduce(vals, live, starts, ends, S.WANT_MINMAX)
     pm = S._segment_reduce_plain(vals, live, starts, ends, S.WANT_MINMAX)
     for name in ("min", "max"):
         if not exact(km[name], pm[name]):
             fail(f"segment_reduce {name} differs from the plain version")
-    lengths = torch.from_numpy(lines).to(dev)
-    data = vals[:n]
 
-    def library():
-        torch.segment_reduce(data, "sum", lengths=lengths)
+    def line(what, t):
+        lib = "none" if t["library_ms"] is None \
+            else f"{t['library_ms']:.4f} ms"
+        print(f"segment_reduce at {what}: {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, torch.segment_reduce {lib}, bound "
+              f"{t['bound_ms']:.4f} ms", flush=True)
 
-    # values and live flags of the segmented rows, starts/ends read,
-    # counts and sums written
-    nbytes = n * 9 + g_cap * 16 + g_cap * 16
+    e7, seven = _segment_case("seven groups", *_seven_groups(rng, dev),
+                              S.WANT_SUM, repeat)
+    line("a4's and n2's seven 0.86M-row groups (float64, WANT_SUM)", seven)
+    ds_sql, _ = tpcds_queries()
+    calls = capture_segment_reduce(LocalEngine(ds_conn), ds_sql[67])
+    shapes = []
+    for values, lv, st, en, want in calls:
+        m = (values[0] if isinstance(values, tuple) else values).shape[0]
+        s0 = st.clamp(0, m)
+        ln = torch.maximum(en.clamp(0, m), s0) - s0
+        shapes.append((int(ln.max()) if ln.numel() else 0,
+                       int((ln > native.SEGMENT_PIECE).sum()),
+                       int(ln.sum()), st.shape[0], want))
+    print("segment_reduce calls of TPC-DS q67 at SF1 (longest segment, "
+          "segments past one piece, rows, segment slots, want): "
+          + "; ".join(str(x) for x in shapes), flush=True)
+    e67 = 0.0
+    if calls:
+        big = max(range(len(calls)), key=lambda i: shapes[i][:3])
+        values, lv, st, en, want = calls[big]
+        if isinstance(values, tuple):
+            fail("q67's K3 calls are in the default mode")
+        e67, t67 = _segment_case("q67", values, lv, st, en, want, repeat)
+        line(f"TPC-DS q67's largest call ({values.dtype}, want {want})",
+             t67)
+    del calls
     return {"name": "segment_reduce", "route": "cuda",
             "source": "presto_tpu_torch/csrc/segment_reduce.cu",
             "replaces": "presto_tpu/ops/scan.py:160",
-            "max_abs_err": err,
-            "ms": cuda_time_ms(kernel, repeat),
-            "plain_ms": cuda_time_ms(plain, max(repeat // 4, 2)),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes",
-            "library_ms": cuda_time_ms(library, repeat)}
+            "max_abs_err": max(err, e7, e67),
+            "ms": q18["ms"], "plain_ms": q18["plain_ms"],
+            "bound_ms": q18["bound_ms"], "bound_by": "bytes",
+            "library_ms": q18["library_ms"]}
 
 
 def _wide_values(rng, n, dev, live_rows=None):
@@ -2553,7 +2718,7 @@ def main() -> int:
     q51_calls = capture_windows(LocalEngine(ds_conn), ds_sql[51])
     report = [kernel_direct_agg(rng, dev, REPEAT),
               kernel_compact(rng, dev, REPEAT),
-              kernel_segment_reduce(rng, dev, REPEAT),
+              kernel_segment_reduce(rng, dev, ds_conn, REPEAT),
               kernel_hash(conn, dev, REPEAT),
               kernel_join_probe(conn, dev, REPEAT),
               kernel_join_expand(conn, dev, REPEAT),

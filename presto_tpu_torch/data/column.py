@@ -804,10 +804,9 @@ def compact_indices(keep: torch.Tensor,
     if n == 0:
         count.zero_()
         return perm, count
-    tile = native.COMPACT_TILE
-    scratch = torch.empty((n + tile - 1) // tile, dtype=torch.int64,
-                          device=keep.device)
     lib = native.load("compact")
+    scratch = torch.empty(lib.compact_scratch_words(n), dtype=torch.int64,
+                          device=keep.device)
     with torch.cuda.device(keep.device):
         stream = torch.cuda.current_stream(keep.device).cuda_stream
         rc = lib.compact_indices(

@@ -25,8 +25,17 @@ _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 
-#: rows handled by one block of the compaction kernel (csrc/compact.cu)
-COMPACT_TILE = 2048
+#: rows of one tile of the compaction kernel (csrc/compact.cu CT_TILE);
+#: the tests size their inputs by it
+COMPACT_TILE = 4096
+
+#: K3's schedule by segment length (csrc/segment_reduce.cu): a segment of
+#: at most SEGMENT_SMALL_MAX rows takes one thread, one of at most
+#: SEGMENT_WARP_MAX rows one warp, a longer one a block per piece of
+#: SEGMENT_PIECE rows; the tests size their segments by them
+SEGMENT_SMALL_MAX = 32
+SEGMENT_WARP_MAX = 1024
+SEGMENT_PIECE = 8192
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int
@@ -38,9 +47,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "compact": {"compact_indices": [_P, _I64, _P, _P, _P, _P, _P]},
     "segment_reduce": {
         "segment_reduce": [_P, _I32, _I32, _P, _P, _P, _I64, _I64,
-                           _P, _P, _P, _P, _P, _P],
+                           _P, _P, _P, _P, _P, _P, _P],
         "segment_sum128": [_P, _P, _P, _P, _I32, _P, _P, _P, _I64, _I64,
-                           _P, _P, _P]},
+                           _P, _P, _P, _P]},
     "hash": {"hash_columns": [_P, _P, _P, _I32, _I64, _P, _P]},
     "join": {
         "join_probe": [_P, _I64, _P, _P, _I64, _P, _P, _P, _P, _I32, _I32,
@@ -63,6 +72,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "percentile": {
         "segment_pick": [_P, _I32, _I64, _P, _P, _I64, ctypes.c_double, _P,
                          _P, _P]},
+}
+
+#: entry points that return the int64 words of scratch a launch takes, so
+#: that the layout is written down in its .cu file alone
+SCRATCH_SIGNATURES: Dict[str, Dict[str, list]] = {
+    "compact": {"compact_scratch_words": [_I64]},
+    "segment_reduce": {"segment_reduce_scratch_words": [_I64, _I64]},
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -139,6 +155,10 @@ def load(name: str) -> ctypes.CDLL:
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = ctypes.c_int
+    for fn, argtypes in SCRATCH_SIGNATURES.get(name, {}).items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int64
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p
     _LIBS[name] = lib

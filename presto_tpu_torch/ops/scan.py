@@ -116,7 +116,10 @@ def segment_reduce(values: torch.Tensor, live: Optional[torch.Tensor],
     values or four int64 limb lanes (l3, l2, l1, l0) and returns "cnt" and
     "lsum" [4, G], the wrapping int64 sums of each limb lane (integer
     values decompose as int128.from_int64). On CPU tensors this is the
-    plain version; on CUDA tensors it launches the kernel."""
+    plain version; on CUDA tensors it launches the kernel. For disjoint
+    ranges, as the sorted aggregation gives, the kernel's "fsum" is bit
+    for bit the same from run to run; overlapping ranges are supported
+    but neither deterministic nor fast (csrc/segment_reduce.cu)."""
     wide = isinstance(values, tuple)
     if want & WANT_SUM128 and want != WANT_SUM128:
         raise ValueError("segment_reduce: the 128-bit sum mode is alone")
@@ -169,6 +172,9 @@ def segment_reduce(values: torch.Tensor, live: Optional[torch.Tensor],
         return ctypes.c_void_p(out[key].data_ptr() if key in out else 0)
 
     lib = native.load("segment_reduce")
+    scratch = torch.empty(
+        lib.segment_reduce_scratch_words(values.shape[0], g),
+        dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.segment_reduce(
@@ -178,7 +184,7 @@ def segment_reduce(values: torch.Tensor, live: Optional[torch.Tensor],
             ctypes.c_void_p(starts.data_ptr()),
             ctypes.c_void_p(ends.data_ptr()), g, values.shape[0],
             ptr("cnt"), ptr("fsum"), ptr("isum"), ptr("min"), ptr("max"),
-            ctypes.c_void_p(stream))
+            ctypes.c_void_p(scratch.data_ptr()), ctypes.c_void_p(stream))
     native.check(rc, "segment_reduce", "segment_reduce")
     segment_reduce.launches += 1
     return out
@@ -202,6 +208,8 @@ def _segment_sum128(values, live, starts, ends) -> dict:
     ptrs = [ctypes.c_void_p(x.data_ptr()) for x in lanes]
     ptrs += [ctypes.c_void_p(0)] * (4 - len(ptrs))
     lib = native.load("segment_reduce")
+    scratch = torch.empty(lib.segment_reduce_scratch_words(n, g),
+                          dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.segment_sum128(
@@ -211,7 +219,7 @@ def _segment_sum128(values, live, starts, ends) -> dict:
             ctypes.c_void_p(ends.data_ptr()), g, n,
             ctypes.c_void_p(out["cnt"].data_ptr()),
             ctypes.c_void_p(out["lsum"].data_ptr()),
-            ctypes.c_void_p(stream))
+            ctypes.c_void_p(scratch.data_ptr()), ctypes.c_void_p(stream))
     native.check(rc, "segment_sum128", "segment_reduce")
     segment_reduce.launches += 1
     segment_reduce.sum128_launches += 1

@@ -60,13 +60,18 @@ def _busy_us(intervals) -> float:
     return total
 
 
+#: a kernel's definition: `__global__`, `void` and its name, with a
+#: `__launch_bounds__(...)` before or after `void`
+_KERNEL = re.compile(r"__global__\s+(?:__launch_bounds__\([^)]*\)\s+)?void"
+                     r"\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+
+
 def _hand_written() -> dict:
     """__global__ function name -> its csrc source (file stem)."""
     csrc = Path(__file__).resolve().parent / "presto_tpu_torch" / "csrc"
     out = {}
     for path in csrc.glob("*.cu"):
-        for name in re.findall(r"__global__\s+void\s+(\w+)",
-                               path.read_text()):
+        for name in _KERNEL.findall(path.read_text()):
             out[name] = path.stem
     return out
 

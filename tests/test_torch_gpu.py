@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from presto_tpu_torch import native
 from presto_tpu_torch import types as T
 from presto_tpu_torch.data import column as C
 from presto_tpu_torch.ops import aggregate as A
@@ -94,39 +95,98 @@ def test_direct_agg_kernel_matches_plain(cuda, cap, n):
     _close(got["fsum"], plain["fsum"])
 
 
-@pytest.mark.parametrize("n,num_rows", [(1, None), (2047, None),
-                                        (2049, 1000), (5_000_001, 4_999_999),
-                                        (100_000, 0)])
-def test_compact_indices_kernel_matches_plain(cuda, n, num_rows):
-    rng = np.random.default_rng(n)
-    keep = torch.from_numpy(rng.random(n) < 0.37)
+_TILE = native.COMPACT_TILE
+
+
+@pytest.mark.parametrize("n,num_rows,p,offset", [
+    (1, None, 0.37, 0), (2047, None, 0.37, 0), (2049, 1000, 0.37, 0),
+    (5_000_001, 4_999_999, 0.37, 0), (100_000, 0, 0.37, 0),
+    (300_000, None, 1.0, 0), (300_000, None, 0.0, 0),       # all, none
+    (_TILE - 1, None, 0.5, 0), (_TILE, None, 0.5, 0),
+    (_TILE + 1, None, 0.5, 0), (300 * _TILE - 1, None, 0.2, 0),
+    (300 * _TILE + 1, 200 * _TILE + 5, 0.2, 0),
+    (1_000_003, None, 0.0004, 0),                 # not a multiple of 16
+    (1_000_003, None, 0.37, 3)])                  # flags not 16-aligned
+def test_compact_indices_kernel_matches_plain(cuda, n, num_rows, p, offset):
+    rng = np.random.default_rng(n + offset)
+    keep = torch.from_numpy(rng.random(n + offset) < p)[offset:]
     nr = None if num_rows is None else torch.tensor(num_rows)
     perm, count = C.compact_indices(keep, nr)
     before = C.compact_indices.launches
-    kp, kc = C.compact_indices(keep.to(cuda),
-                               None if nr is None else nr.to(cuda))
+    # on the card, the flags start `offset` bytes into their storage
+    on_card = torch.cat([torch.zeros(offset, dtype=torch.bool),
+                         keep]).to(cuda)[offset:]
+    kp, kc = C.compact_indices(on_card, None if nr is None else nr.to(cuda))
     assert C.compact_indices.launches == before + 1
     _same(kp, perm)
     _same(kc, count)
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.int64, torch.int32])
-def test_segment_reduce_kernel_matches_plain(cuda, dtype):
-    rng = np.random.default_rng(7)
-    n = 300_000
-    vals = torch.from_numpy(rng.normal(0, 100, n)).to(dtype)
+_SMALL = native.SEGMENT_SMALL_MAX
+_WARP = native.SEGMENT_WARP_MAX
+_PIECE = native.SEGMENT_PIECE
+
+#: segment lengths reaching each of K3's classes (a thread, a warp, pieces
+#: of a block each) and their boundaries
+SEGMENT_LENGTHS = {
+    "classes": [0, 1, _SMALL - 1, _SMALL, _SMALL + 1, _WARP - 1, _WARP,
+                _WARP + 1, _PIECE - 1, _PIECE, _PIECE + 1, 3 * _PIECE + 7],
+    "860000": [860_000],
+    "q18_mix": "q18",
+    "short_mix": "short",
+    # every range starts at row 0: more pieces and listed segments than
+    # disjoint segments can make, which the scratch lists are sized for
+    "overlapping": [2500] * 40,
+}
+
+
+def _segments(rng, case, pad=37):
+    """starts/ends (int64) of the case's contiguous segments, then `pad`
+    empty, clamped and past-the-end ranges; the page's row count."""
+    lengths = SEGMENT_LENGTHS[case]
+    if lengths == "q18":
+        lengths = rng.integers(1, 8, 150_000)
+    elif lengths == "short":
+        lengths = rng.integers(0, 40, 20_000)
+    lengths = np.asarray(lengths, dtype=np.int64)
+    ends = np.cumsum(lengths)
+    n = int(ends[-1]) + 13
+    k = np.arange(pad)
+    starts = np.concatenate([ends - lengths,
+                             np.where(k % 3 == 0, n + 4, n - 9 * (k % 2))])
+    ends = np.concatenate([ends, np.where(k % 3 == 1, n - 20, n + 1)])
+    if case == "overlapping":
+        starts[:len(lengths)] = 0
+    return torch.from_numpy(starts), torch.from_numpy(ends), n
+
+
+def _segment_values(rng, dtype, n):
     if dtype == torch.float64:
+        vals = torch.from_numpy(rng.normal(0, 100, n))
         vals[::53] = float("nan")
-    lengths = rng.integers(0, 40, 20_000)
-    ends = np.minimum(np.cumsum(lengths), n)
-    starts = ends - lengths
-    starts = torch.from_numpy(np.maximum(starts, 0))
-    ends = torch.from_numpy(ends)
+    elif dtype == torch.int64:
+        # near the wrap: sums of a few rows pass 2^63
+        vals = torch.from_numpy(rng.integers(2 ** 62, 2 ** 63 - 1, n)
+                                * rng.choice([-1, 1], n))
+    else:
+        vals = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, n)
+                                .astype(np.int32))
+    return vals
+
+
+@pytest.mark.parametrize("case", list(SEGMENT_LENGTHS))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int64, torch.int32])
+def test_segment_reduce_kernel_matches_plain(cuda, dtype, case):
+    rng = np.random.default_rng(7)
+    starts, ends, n = _segments(rng, case)
+    vals = _segment_values(rng, dtype, n)
     live = torch.from_numpy(rng.random(n) < 0.9)
     want = S.WANT_SUM | S.WANT_MINMAX
     plain = S.segment_reduce(vals, live, starts, ends, want)
+    before = S.segment_reduce.launches
     got = S.segment_reduce(vals.to(cuda), live.to(cuda), starts.to(cuda),
                            ends.to(cuda), want)
+    assert S.segment_reduce.launches == before + 1
     for name in ("cnt", "min", "max") + (("isum",) if dtype != torch.float64
                                          else ()):
         _same(got[name], plain[name])
@@ -136,6 +196,24 @@ def test_segment_reduce_kernel_matches_plain(cuda, dtype):
         _close(got["fsum"].cpu()[ok], plain["fsum"][ok])
     else:
         _close(got["fsum"], plain["fsum"])
+    # no live mask: every row counts
+    got = S.segment_reduce(vals.to(cuda), None, starts.to(cuda),
+                           ends.to(cuda), S.WANT_SUM)
+    _same(got["cnt"], S.segment_reduce(vals, None, starts, ends)["cnt"])
+
+
+@pytest.mark.parametrize("case", ["classes", "860000"])
+def test_segment_reduce_sums_repeat_bit_for_bit(cuda, case):
+    """Two launches give the same float64 sums bit for bit, whichever
+    blocks take which pieces."""
+    rng = np.random.default_rng(8)
+    starts, ends, n = _segments(rng, case)
+    vals = torch.from_numpy(rng.normal(0, 1e6, n)).to(cuda)
+    live = torch.from_numpy(rng.random(n) < 0.9).to(cuda)
+    args = (vals, live, starts.to(cuda), ends.to(cuda), S.WANT_SUM)
+    a = S.segment_reduce(*args)["fsum"]
+    b = S.segment_reduce(*args)["fsum"]
+    assert torch.equal(a.view(torch.int64), b.view(torch.int64))
 
 
 def _key_columns(rng, n):
@@ -545,13 +623,10 @@ def test_direct_agg_sum128_mode_matches_plain(cuda):
         _same(got[name][mm], plain[name][mm])
 
 
-def test_segment_sum128_mode_matches_plain(cuda):
+@pytest.mark.parametrize("case", list(SEGMENT_LENGTHS))
+def test_segment_sum128_mode_matches_plain(cuda, case):
     rng = np.random.default_rng(13)
-    n = 300_001
-    lengths = rng.integers(0, 40, 20_000)
-    ends = np.minimum(np.cumsum(lengths), n)
-    starts = torch.from_numpy(np.maximum(ends - lengths, 0))
-    ends = torch.from_numpy(ends)
+    starts, ends, n = _segments(rng, case)
     live = torch.from_numpy(rng.random(n) < 0.9)
     for vals in (tuple(_wide_lanes_np(rng, n)),
                  torch.from_numpy(rng.integers(-2 ** 62, 2 ** 62, n)),

@@ -62,3 +62,27 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def _profile_port(monkeypatch):
+    monkeypatch.syspath_prepend(str(ROOT))
+    import profile_port
+    return profile_port
+
+
+def test_profile_port_classes_every_kernel(monkeypatch):
+    """Every __global__ function of csrc/ counts as hand-written in
+    profile_port's breakdown, under its own source."""
+    found = _profile_port(monkeypatch)._hand_written()
+    for path in sorted((PORT / "csrc").glob("*.cu")):
+        n = path.read_text().count("__global__")
+        assert sum(src == path.stem for src in found.values()) == n, path.name
+
+
+@pytest.mark.parametrize("text", [
+    "__global__ void k(int a) {",
+    "template <class R>\n__global__ void k(R r) {",
+    "__global__ void __launch_bounds__(256) k(int a) {",
+    "__global__ __launch_bounds__(256, 2) void k (int a) {"])
+def test_profile_port_kernel_pattern_takes_qualifiers(monkeypatch, text):
+    assert _profile_port(monkeypatch)._KERNEL.findall(text) == ["k"]

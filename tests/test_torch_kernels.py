@@ -8,8 +8,11 @@ wrappers take their plain PyTorch versions on CPU tensors), and compares:
   dictionary/boolean keys, with NULL keys and values, a fused row mask, an
   empty mask, a group whose inputs are all NULL, and global aggregation;
 - sorted aggregation (K2 + K3): large-domain keys, capacity overflow;
-- compaction (K2): data/column.compact and the survivor permutation;
-- segment reductions (K3): ops/scan.segment_sums and group_starts;
+- compaction (K2): data/column.compact and the survivor permutation, on
+  one tile and across several of the kernel's tiles;
+- segment reductions (K3): ops/scan.segment_sums and group_starts, and
+  sums and the sorted min/max over segments longer than one of the
+  kernel's pieces (native.SEGMENT_PIECE rows);
 - ORDER BY / TopN: ops/sort.
 
 Tolerance: float results within 1e-9 relative (the port sums in another
@@ -238,6 +241,84 @@ def test_segment_sums_match_jax(dtype):
         np.testing.assert_allclose(p, r, rtol=TOL, atol=TOL * 1e3)
     else:
         np.testing.assert_array_equal(p, r)
+
+
+#: segment lengths past one of K3's pieces, with empty segments between
+LONG_LENGTHS = [20_000, 0, 70_000, 45_000, 0, 33_000]
+
+
+@pytest.mark.parametrize("dtype", ["float64", "int64", "int32"])
+def test_segment_sums_match_jax_past_one_piece(dtype):
+    rng = np.random.default_rng(20)
+    lengths = np.array(LONG_LENGTHS)
+    ends = np.cumsum(lengths)
+    n = int(ends[-1]) + 100
+    vals = (rng.normal(0, 1e3, n) if dtype == "float64"
+            else rng.integers(-10**5, 10**5, n)).astype(dtype)
+    # a segment clamped at the page end and an empty one past it
+    starts = np.concatenate([ends - lengths, [n - 50, n]]).astype(np.int32)
+    ends = np.concatenate([ends, [n, n]]).astype(np.int32)
+    r = np.asarray(RS.segment_sums(jnp.asarray(vals), jnp.asarray(starts),
+                                   jnp.asarray(ends)))
+    p = PS.segment_sums(torch.from_numpy(vals),
+                        torch.from_numpy(starts.astype(np.int64)),
+                        torch.from_numpy(ends.astype(np.int64))).numpy()
+    if dtype == "float64":
+        np.testing.assert_allclose(p, r, rtol=TOL, atol=TOL * 1e3)
+    else:
+        np.testing.assert_array_equal(p, r)
+
+
+@pytest.mark.parametrize("case", ["mask", "no_mask"])
+def test_sorted_aggregate_matches_jax_past_one_piece(case):
+    """Four groups of 20,000-70,000 rows (each longer than one of K3's
+    pieces) through the sorted path's sums, counts and min/max, with NULL
+    values, a row mask and empty overflow groups."""
+    rng = np.random.default_rng(21)
+    n, cap = 170_000, 262_144
+    key = np.repeat([40, 7, 23, 11], [20_000, 70_000, 45_000, 35_000])
+    rng.shuffle(key)
+    cols = [("bigint", key, np.zeros(n, bool), None),
+            ("double", rng.normal(100.0, 30.0, n), rng.random(n) < 0.1,
+             None),
+            ("bigint", rng.integers(-10**6, 10**6, n), rng.random(n) < 0.2,
+             None)]
+    ref, port = _pages(cols, n, cap)
+    mask = np.pad(rng.random(n) < 0.7, (0, cap - n)) if case == "mask" \
+        else None
+
+    def aggs(T, mod):
+        S = mod.AggSpec
+        return [S("count_star", None, T.BIGINT), S("count", 1, T.BIGINT),
+                S("sum", 1, T.DOUBLE), S("sum", 2, T.BIGINT),
+                S("avg", 1, T.DOUBLE), S("min", 1, T.DOUBLE),
+                S("max", 1, T.DOUBLE), S("min", 2, T.BIGINT),
+                S("max", 2, T.BIGINT)]
+
+    r_out, r_true = RA.grouped_aggregate(
+        ref, (0,), aggs(RT, RA), 16,
+        row_mask=None if mask is None else jnp.asarray(mask))
+    p_out, p_true = PA.grouped_aggregate(
+        port, (0,), aggs(PT, PA), 16,
+        row_mask=None if mask is None else torch.from_numpy(mask))
+    assert int(p_true) == int(r_true) == 4
+    assert_rows_match(p_out.to_pylist(), r_out.to_pylist(), float_tol=TOL)
+
+
+@pytest.mark.parametrize("p", [0.0004, 0.4, 1.0],
+                         ids=["sparse", "random", "all"])
+def test_compact_matches_jax_across_tiles(p):
+    """A page of several of K2's tiles (native.COMPACT_TILE rows)."""
+    rng = np.random.default_rng(22)
+    n, cap = 30_001, 32_768
+    ref, port = _pages(_mixed_columns(rng, n), n, cap)
+    keep = rng.random(cap) < p
+    r = RC.compact(ref, jnp.asarray(keep))
+    q = PC.compact(port, torch.from_numpy(keep))
+    assert int(q.num_rows) == int(r.num_rows)
+    assert_rows_match(q.to_pylist(), r.to_pylist(), float_tol=0.0)
+    for rc, pc in zip(r.columns, q.columns):
+        np.testing.assert_array_equal(pc.nulls.numpy(), np.asarray(rc.nulls))
 
 
 @pytest.mark.parametrize("out_cap", [64, 512, 8192],
