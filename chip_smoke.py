@@ -40,9 +40,16 @@ Phases, each fatal on failure, each printing its seconds:
      timed with CUDA events beside the plain version, one PyTorch library
      call where one computes the same function (K2: a stable descending
      torch.sort of the flags, and torch.nonzero on a line of its own; K3:
-     torch.segment_reduce over the live values), and the card's bound; K5's
-     merge-path modes, K7's other scans and K9's other window functions
-     are printed on lines of their own;
+     torch.segment_reduce over the live values), and the card's bound;
+     K1's and K5's cases (direct_agg_cases: q01's key skew, q06's one
+     bin, 64 bins x 12 mixed inputs, an all-NULL input, num_rows 0, an
+     all-false mask, NaN among min/max inputs; join_probe_cases: q13's
+     probe in every mode, q18's LAST probe, the merge join's dup-count
+     self-probes, an empty and a sparse build side, dead probes, one
+     window of
+     100,000 equal hashes, build sides of 2^20 +- 1 rows), each also
+     launched twice and held bit for bit, K7's other scans and K9's
+     other window functions are printed on lines of their own;
   4. the main paths at SF1, each with the kernels' launch counts set to 0
      just before and read just after:
      a. LocalEngine(TpchConnector(1.0)) on the card runs TPC-H q01, q06,
@@ -399,71 +406,194 @@ def close(a, b, rtol: float) -> float:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def kernel_direct_agg(rng, dev, repeat):
-    """K1 at q01's SF1 shape: 6.0M rows in an 8M-row page, two dictionary
-    keys (3 and 2 codes), the fused filter mask, five float64 inputs."""
+def _da_bytes(n, keys, mask, inputs, valid) -> int:
+    """Bytes a direct_agg call must move: each row below num_rows's mask
+    (1 B); for each valid row (below num_rows and in the mask), its key
+    codes (4 B) and key null flags (1 B), each input's null flag and,
+    where the input asks for more than a count, its value (8 B, 4 B for
+    int32, 32 B for limb lanes). A masked-out row adds nothing, so its
+    keys are not counted."""
+    nbytes = n * (mask is not None) + valid * 5 * len(keys)
+    for v, nl, want in inputs:
+        if nl is not None:
+            nbytes += valid
+        if want:
+            nbytes += valid * (32 if isinstance(v, tuple)
+                               else v.element_size())
+    return nbytes
+
+
+def _da_case(name, cap, n, keys, domains, inputs, mask, dev,
+             library=None) -> dict:
+    import torch
+    return {"case": name, "cap": cap, "n": n, "keys": keys,
+            "domains": domains, "inputs": inputs, "mask": mask,
+            "num_rows": torch.tensor(n, dtype=torch.int64, device=dev),
+            "library": library}
+
+
+def _bits(t):
+    """A tensor's elements as int64 words (float64 by their bits)."""
+    import torch
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
+def run_direct_agg_case(c, repeat, A=None) -> dict:
+    """One direct_agg call held against its plain version (rows and
+    counts, int64 and limb sums, min and max exact; float64 sums within
+    RTOL_SUM), launched twice (every output bit for bit), and timed
+    beside the plain version, its bound and, where one exists, its
+    library call. A: the module whose wrapper runs (default: this
+    checkout's ops/aggregate)."""
+    import torch
+    if A is None:
+        from presto_tpu_torch.ops import aggregate as A
+    args = (c["cap"], c["num_rows"], c["keys"], c["domains"], c["inputs"],
+            c["mask"])
+
+    def kernel():
+        return A.direct_agg(*args)
+
+    def plain():
+        return A._direct_agg_plain(*args)
+
+    k, k2, p = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    what = f"direct_agg ({c['case']})"
+    for name in k:
+        if not torch.equal(_bits(k[name]), _bits(k2[name])):
+            fail(f"{what}: two launches differ in {name}")
+    for name in ("rows", "cnt"):
+        if not exact(k[name], p[name]):
+            fail(f"{what}: {name} differs from the plain version")
+    err = 0.0
+    for j, (v, _nl, want) in enumerate(c["inputs"]):
+        if want & A.WANT_SUM128 and not exact(k["lsum"][j], p["lsum"][j]):
+            fail(f"{what}: lsum of input {j} differs from the plain version")
+        if isinstance(v, tuple):
+            continue
+        f64 = v.dtype == torch.float64
+        if want & A.WANT_SUM:
+            err = max(err, close(k["fsum"][j], p["fsum"][j], RTOL_SUM))
+            if not f64 and not exact(k["isum"][j], p["isum"][j]):
+                fail(f"{what}: isum of input {j} differs")
+        if want & A.WANT_MINMAX:
+            for name in ("mn", "mx"):
+                a, b = k[name][j], p[name][j]
+                if f64:
+                    a, b = a.view(torch.float64), b.view(torch.float64)
+                if not exact(a, b):
+                    fail(f"{what}: {name} of input {j} differs")
+    n = c["n"]
+    valid = n if c["mask"] is None else int(c["mask"][:n].sum())
+    nbytes = _da_bytes(n, c["keys"], c["mask"], c["inputs"], valid)
+    lib = c["library"]
+    return {"case": c["case"], "max_abs_err": err,
+            "ms": cuda_time_ms(kernel, repeat),
+            "plain_ms": cuda_time_ms(plain, max(repeat // 4, 2)),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "library_ms": cuda_time_ms(lib, repeat) if lib else None}
+
+
+def _bincounts(keys, radix, mask, n, inputs, bins):
+    """The library yardstick of a direct_agg case: one weighted bincount
+    per input and one count over a precomputed bin code (the code and
+    the masked weights are not part of its time)."""
+    import torch
+    dev = mask.device
+    code = torch.zeros_like(keys[0][0], dtype=torch.int64)
+    for (codes, _nl), r in zip(keys, radix):
+        code = code * r + codes.long()
+    live = mask & (torch.arange(mask.shape[0], device=dev) < n)
+    code = torch.where(live, code, bins)
+    weights = [torch.where(live, v, 0.0) for v, _nl, _w in inputs]
+
+    def library():
+        for w in weights:
+            torch.bincount(code, weights=w, minlength=bins + 1)
+        torch.bincount(code, minlength=bins + 1)
+    return library
+
+
+def direct_agg_cases(rng, dev) -> list:
+    """Phase 3's direct_agg shapes, 6.0M live rows in an 8M-row page
+    unless named otherwise. The first is the kernel line's, q01 at SF1
+    with uniform keys (two dictionary keys of 3 and 2 codes, the fused
+    filter mask, five float64 sums), drawn from `rng` as before; the
+    others come from a generator of their own: q01's real key skew
+    (returnflag x linestatus A-F/R-F/N-O/N-F at 25/25/49.5/0.5%); q06's
+    one-bin global sum; 64 bins x 12 inputs of float64, int64 and int32
+    with sums, min/max and NULLs (NULL keys in the last bins); an
+    all-NULL input; num_rows 0; an all-false mask; NaN among min/max
+    inputs."""
     import torch
     from presto_tpu_torch.ops import aggregate as A
     cap, n = 8_388_608, 6_001_215
     keys_np = [rng.integers(0, 3, cap).astype(np.int32),
                rng.integers(0, 2, cap).astype(np.int32)]
-    keys = [(torch.from_numpy(k).to(dev),
-             torch.zeros(cap, dtype=torch.bool, device=dev))
-            for k in keys_np]
-    mask = torch.from_numpy(rng.random(cap) < 0.986).to(dev)
-    inputs = [(torch.from_numpy(rng.random(cap) * scale).to(dev),
-               torch.zeros(cap, dtype=torch.bool, device=dev), A.WANT_SUM)
-              for scale in (50.0, 1e5, 1e5, 1e5, 0.1)]
-    num_rows = torch.tensor(n, dtype=torch.int64, device=dev)
-    domains = [3, 2]
+    zeros = torch.zeros(cap, dtype=torch.bool, device=dev)
+    keys = [(torch_from(k, dev), zeros) for k in keys_np]
+    mask = torch_from(rng.random(cap) < 0.986, dev)
+    sums = [(torch_from(rng.random(cap) * scale, dev), zeros, A.WANT_SUM)
+            for scale in (50.0, 1e5, 1e5, 1e5, 0.1)]
+    cases = [_da_case("q01", cap, n, keys, [3, 2], sums, mask, dev,
+                      _bincounts(keys, [3, 3], mask, n, sums, 12))]
+    r2 = np.random.default_rng([SEED, 1])
+    pair = r2.choice(4, cap, p=[0.25, 0.25, 0.495, 0.005])
+    flag = np.array([0, 2, 1, 1], np.int32)[pair]     # A, R, N, N
+    status = np.array([0, 0, 1, 0], np.int32)[pair]   # F, F, O, F
+    skew = [(torch_from(flag, dev), zeros), (torch_from(status, dev), zeros)]
+    cases.append(_da_case("q01 key skew", cap, n, skew, [3, 2], sums, mask,
+                          dev, _bincounts(skew, [3, 3], mask, n, sums, 12)))
+    q06 = [(torch_from(r2.random(cap) * 1e4, dev), zeros, A.WANT_SUM)]
+    cases.append(_da_case("q06 global", cap, n, [], [], q06,
+                          torch_from(r2.random(cap) < 0.019, dev), dev))
+    wide_keys = [(torch_from(r2.integers(0, 7, cap).astype(np.int32), dev),
+                  torch_from(r2.random(cap) < 0.05, dev)) for _ in range(2)]
+    mixed = []
+    for j in range(12):
+        v = (r2.normal(0, 1e3, cap), r2.integers(-10 ** 12, 10 ** 12, cap),
+             r2.integers(-10 ** 6, 10 ** 6, cap).astype(np.int32))[j % 3]
+        mixed.append((torch_from(v, dev), torch_from(r2.random(cap) < 0.1,
+                                                     dev),
+                      A.WANT_SUM | A.WANT_MINMAX))
+    cases.append(_da_case("64 bins x 12 mixed inputs", cap, n, wide_keys,
+                          [7, 7], mixed, mask, dev))
+    ones = torch.ones(cap, dtype=torch.bool, device=dev)
+    all_null = [(sums[0][0], ones, A.WANT_SUM | A.WANT_MINMAX),
+                (torch_from(r2.integers(0, 10 ** 6, cap), dev), zeros,
+                 A.WANT_SUM), sums[1]]
+    cases.append(_da_case("all-NULL input", cap, n, keys, [3, 2], all_null,
+                          mask, dev))
+    cases.append(_da_case("num_rows 0", cap, 0, keys, [3, 2], sums, mask,
+                          dev))
+    cases.append(_da_case("all-false mask", cap, n, keys, [3, 2], sums,
+                          torch.zeros_like(mask), dev))
+    nan = r2.normal(0, 1e3, cap)
+    nan[::1000] = np.nan
+    only_b0 = np.where(keys_np[0] + keys_np[1] == 0, np.nan, nan)
+    cases.append(_da_case("NaN min/max", cap, n, keys, [3, 2], [
+        (torch_from(nan, dev), zeros, A.WANT_MINMAX | A.WANT_SUM),
+        (torch_from(only_b0, dev), zeros, A.WANT_MINMAX),
+        (sums[0][0], zeros, A.WANT_MINMAX)], mask, dev))
+    return cases
 
-    def kernel():
-        return A.direct_agg(cap, num_rows, keys, domains, inputs, mask)
 
-    def plain():
-        return A._direct_agg_plain(cap, num_rows, keys, domains, inputs,
-                                   mask)
-
-    k, p = kernel(), plain()
-    torch.cuda.synchronize()
-    err = 0.0
-    for name in ("rows", "cnt"):
-        if not exact(k[name], p[name]):
-            fail(f"direct_agg {name} differs from the plain version")
-    err = max(err, close(k["fsum"], p["fsum"], RTOL_SUM))
-    # min/max exact, on a separate call with one min/max input
-    mm_in = [(inputs[0][0], inputs[0][1], A.WANT_MINMAX)]
-    km = A.direct_agg(cap, num_rows, keys, domains, mm_in, mask)
-    pm = A._direct_agg_plain(cap, num_rows, keys, domains, mm_in, mask)
-    for name in ("mn", "mx", "cnt"):
-        if not exact(km[name].view(torch.float64),
-                     pm[name].view(torch.float64)):
-            fail(f"direct_agg {name} differs from the plain version")
-    # the library yardstick: one weighted bincount per input over a
-    # precomputed bin code (the code and mask are not part of its time)
-    code = (keys[0][0].long() * 3 + keys[1][0].long())
-    live = mask & (torch.arange(cap, device=dev) < n)
-    code = torch.where(live, code, 12)
-    weights = [torch.where(live, v, 0.0) for v, _nl, _w in inputs]
-
-    def library():
-        for w in weights:
-            torch.bincount(code, weights=w, minlength=13)
-        torch.bincount(code, minlength=13)
-
-    live_rows = int(live.sum())
-    # bytes the function needs: keys (int32 + null flag) and the mask for
-    # each valid row; each input's value and null flag for each live row
-    nbytes = n * (2 * 5 + 1) + live_rows * len(inputs) * 9
+def kernel_direct_agg(rng, dev, repeat):
+    """K1 at phase 3's shapes (direct_agg_cases), each held against the
+    plain version; the kernel line is q01's, the other cases are printed
+    on a line of their own."""
+    results = [run_direct_agg_case(c, repeat)
+               for c in direct_agg_cases(rng, dev)]
+    print("direct_agg cases: " + json.dumps(results), flush=True)
+    q01 = results[0]
     return {"name": "direct_agg", "route": "cuda",
             "source": "presto_tpu_torch/csrc/direct_agg.cu",
             "replaces": "presto_tpu/ops/aggregate.py:145",
-            "max_abs_err": err,
-            "ms": cuda_time_ms(kernel, repeat),
-            "plain_ms": cuda_time_ms(plain, max(repeat // 4, 2)),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes",
-            "library_ms": cuda_time_ms(library, repeat)}
+            "max_abs_err": max(r["max_abs_err"] for r in results),
+            "ms": q01["ms"], "plain_ms": q01["plain_ms"],
+            "bound_ms": q01["bound_ms"], "bound_by": "bytes",
+            "library_ms": q01["library_ms"]}
 
 
 def _stable_sort(keep):
@@ -841,7 +971,7 @@ def kernel_int128(rng, dev, repeat):
             "library_ms": None}
 
 
-def kernel_direct_agg_sum128(rng, dev, repeat):
+def direct_agg_sum128_case(rng, dev) -> dict:
     """K1's 128-bit sum mode at q01's spec-typed SF1 shape: 6.0M rows in
     an 8M-row page, two dictionary keys, the fused filter mask; l_quantity
     and l_extendedprice as int64 cents (sum and the avg128 limb sums),
@@ -863,33 +993,22 @@ def kernel_direct_agg_sum128(rng, dev, repeat):
                A.WANT_SUM128),
               (_wide_values(rng, cap, dev, n), nulls, A.WANT_SUM128),
               (_wide_values(rng, cap, dev, n), nulls, A.WANT_SUM128)]
-    num_rows = torch.tensor(n, dtype=torch.int64, device=dev)
+    return _da_case("q01 spec-typed, 128-bit", cap, n, keys, [3, 2], inputs,
+                    mask, dev)
 
-    def kernel():
-        return A.direct_agg(cap, num_rows, keys, [3, 2], inputs, mask)
 
-    def plain():
-        return A._direct_agg_plain(cap, num_rows, keys, [3, 2], inputs, mask)
-
-    k, p = kernel(), plain()
-    for name in ("rows", "cnt", "isum", "lsum"):
-        if not exact(k[name], p[name]):
-            fail(f"direct_agg 128-bit mode: {name} differs from the plain "
-                 f"version")
-    err = close(k["fsum"], p["fsum"], RTOL_SUM)
-    live = int((mask[:n]).sum())
-    # keys, key nulls and the mask per valid row; per live row each
-    # input's value (8 B, or 32 B of lanes) and null flag
-    nbytes = n * (2 * 5 + 1) + live * (3 * 9 + 2 * 33)
+def kernel_direct_agg_sum128(rng, dev, repeat):
+    """K1's 128-bit sum mode (direct_agg_sum128_case) held against the
+    plain version; torch has no 128-bit integer type, so no library
+    call."""
+    r = run_direct_agg_case(direct_agg_sum128_case(rng, dev), repeat)
+    print("direct_agg_sum128 case: " + json.dumps(r), flush=True)
     return {"name": "direct_agg_sum128", "route": "cuda",
             "source": "presto_tpu_torch/csrc/direct_agg.cu",
             "replaces": "presto_tpu/ops/aggregate.py:284",
-            "max_abs_err": err,
-            "ms": cuda_time_ms(kernel, repeat),
-            "plain_ms": cuda_time_ms(plain, max(repeat // 4, 2)),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes",
-            "library_ms": None}
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "bytes", "library_ms": None}
 
 
 def kernel_segment_sum128(rng, dev, repeat):
@@ -989,11 +1108,12 @@ def _probe_bytes(ph, bh_sorted, order, pvals, bvals, mode, lo, cnt,
     """Bytes a join_probe call must move on this run's data: each probe
     hash read and its window start and count written (24 B), its hit
     written (8 B, not in WINDOW mode); the live build hashes read once
-    (at most what the binary searches read); for a walk, the key lanes
-    of the probe rows with a window, and the build row and key lanes of
-    every sorted position that some walk reaches: from the window's
-    start to its first match (FIRST), from its end back to its last match
-    (LAST), or all of it where no key matches."""
+    (at most what the searches read); for a walk, the key lanes of the
+    probe rows with a window, and the build row and key lanes of every
+    sorted position that some walk reaches: from the window's start to
+    its first match (FIRST), from its end back to its last match (LAST),
+    or all of it where no key matches or in ALL mode, which also writes
+    a flag per build row."""
     import torch
     from presto_tpu_torch.ops import join as J
     p, b = ph.shape[0], bh_sorted.shape[0]
@@ -1007,8 +1127,11 @@ def _probe_bytes(ph, bh_sorted, order, pvals, bvals, mode, lo, cnt,
     at = pos[hit.clamp(min=0)]
     if mode == J.FIRST:
         first, last = lo, torch.where(hit >= 0, at + 1, lo + cnt)
-    else:
+    elif mode == J.LAST:
         first, last = torch.where(hit >= 0, at, lo), lo + cnt
+    else:
+        first, last = lo, lo + cnt
+        nbytes += b
     edge = torch.zeros(b + 1, dtype=torch.int64, device=order.device)
     one = torch.ones(int(live.sum()), dtype=torch.int64, device=order.device)
     edge.index_add_(0, first[live], one)
@@ -1017,68 +1140,95 @@ def _probe_bytes(ph, bh_sorted, order, pvals, bvals, mode, lo, cnt,
     return nbytes + walked * (8 + sum(v.element_size() for v in bvals))
 
 
-def _probe_case(what, ph, bh_sorted, order, pvals, bvals, mode,
-                repeat) -> dict:
-    """One join_probe call held against its plain version (exact) and
-    timed beside it and its bound."""
-    from presto_tpu_torch.ops import join as J
+MODE_NAMES = ("WINDOW", "FIRST", "LAST", "ALL")
+
+
+def _probe_case(what, ph, bh_sorted, order, pvals, bvals, mode) -> dict:
+    return {"case": what, "mode": mode, "ph": ph, "bh_sorted": bh_sorted,
+            "order": order, "pvals": pvals, "bvals": bvals}
+
+
+def run_join_probe_case(c, repeat, J=None) -> dict:
+    """One join_probe call held exactly against its plain version,
+    launched twice (bit for bit), and timed beside the plain version,
+    its bound and, in WINDOW mode, two torch.searchsorted calls. J: the
+    module whose wrapper runs (default: this checkout's ops/join)."""
+    import torch
+    if J is None:
+        from presto_tpu_torch.ops import join as J
+    args = (c["ph"], c["bh_sorted"], c["order"], c["pvals"], c["bvals"],
+            c["mode"])
 
     def kernel():
-        return J.join_probe(ph, bh_sorted, order, pvals, bvals, mode)
+        return J.join_probe(*args)
 
     def plain():
-        return J._join_probe_plain(ph, bh_sorted, order, pvals, bvals, mode)
+        return J._join_probe_plain(*args)
 
-    got, want = kernel(), plain()
-    for g, w in zip(got, want):
-        if (g is None) != (w is None) or (w is not None and not exact(g, w)):
-            fail(f"join_probe ({what}) differs from the plain version")
+    got, again, want = kernel(), kernel(), plain()
+    what = f"join_probe ({c['case']}, {MODE_NAMES[c['mode']]})"
+    for g, a, w in zip(got, again, want):
+        if (g is None) != (w is None) or (w is not None and not (
+                exact(g, w) and exact(g, a))):
+            fail(f"{what} differs from the plain version or between two "
+                 f"launches")
     lo, cnt, hit, _ = got
-    nbytes = _probe_bytes(ph, bh_sorted, order, pvals, bvals, mode, lo, cnt,
-                          hit)
-    return {"case": what, "mode": ("WINDOW", "FIRST", "LAST", "ALL")[mode],
-            "probe_rows": ph.shape[0], "build_rows": bh_sorted.shape[0],
-            "ms": cuda_time_ms(kernel, repeat),
-            "plain_ms": cuda_time_ms(plain, max(repeat // 4, 2)),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
-
-
-def kernel_join_probe(conn, dev, repeat):
-    """K5 at q13's shape: 262,144 customer probe rows into the 2,097,152
-    hash-sorted orders rows; every mode held against the plain version.
-    The kernel line's time is that WINDOW probe (the expansion join's),
-    beside torch.searchsorted. The merge path's calls are timed too and
-    printed on their own line: q18's LAST probe of lineitem (8,388,608
-    rows) into orders on orderkey, and the dup count's FIRST self-probe
-    of the build side's candidates, on orders by orderkey (unique keys:
-    no candidates) and by custkey (q13's build: most rows are)."""
-    import torch
-    from presto_tpu_torch.ops import join as J
-    cust, orders = _q13_join_inputs(conn, dev)
-    ph, bh_sorted, order = _sorted_build(cust, orders)
-    pvals = [cust.columns[0].values]
-    bvals = [orders.columns[0].values]
-    for mode in (J.FIRST, J.LAST, J.ALL):
-        got = J.join_probe(ph, bh_sorted, order, pvals, bvals, mode)
-        want = J._join_probe_plain(ph, bh_sorted, order, pvals, bvals, mode)
-        for g, w in zip(got, want):
-            if (g is None) != (w is None) or (
-                    w is not None and not exact(g, w)):
-                fail(f"join_probe (mode {mode}) differs from the plain "
-                     f"version")
-    window = _probe_case("q13 customer x orders", ph, bh_sorted, order,
-                         pvals, bvals, J.WINDOW, repeat)
+    nbytes = _probe_bytes(*args[:6], lo, cnt, hit)
+    bh_sorted, ph = c["bh_sorted"], c["ph"]
 
     def library():
         torch.searchsorted(bh_sorted, ph, side="left")
         torch.searchsorted(bh_sorted, ph, side="right")
 
+    window = c["mode"] == 0
+    return {"case": c["case"], "mode": MODE_NAMES[c["mode"]],
+            "probe_rows": ph.shape[0], "build_rows": bh_sorted.shape[0],
+            "ms": cuda_time_ms(kernel, repeat),
+            "plain_ms": cuda_time_ms(plain, max(repeat // 4, 2)),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "library_ms": cuda_time_ms(library, repeat) if window else None}
+
+
+def _hashed_keys(keys: np.ndarray, dead: np.ndarray, sentinel: int, dev):
+    """K4's hashes of int64 keys, `sentinel` where dead, and the key lane."""
+    import torch
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.data.column import Column
+    from presto_tpu_torch.ops import keys as K
+    col = Column.from_numpy(keys, T.BIGINT, device=dev)
+    h = K.hash_columns([col])[:len(keys)]
+    h = torch.where(torch_from(dead, dev), sentinel, h)
+    return h, col.values[:len(keys)].contiguous()
+
+
+def join_probe_cases(conn, dev) -> list:
+    """Phase 3's join_probe shapes: q13's (262,144 customer probe rows into
+    the 2,097,152 hash-sorted orders rows on custkey) in every mode, the
+    first (WINDOW, the expansion join's) the kernel line's; q18's LAST
+    probe of lineitem (8,388,608 rows) into orders on orderkey; the merge
+    join's duplicate-count FIRST self-probes of the build side's
+    candidates, on orders by orderkey (unique keys: no candidates) and by
+    custkey; q13's probe into an empty build side (every row dead) and
+    into one of about 64 live rows; q13's build probed by dead rows only;
+    one window of 100,000 equal hashes with differing keys (131,072 build
+    rows), probed in WINDOW mode and, with keys among the window's first
+    or last 32 rows, FIRST and LAST;
+    build sides of 2^20 - 1 and 2^20 + 1 rows (keys with duplicates, 2%
+    dead) probed by 262,144 rows in every mode."""
+    import torch
+    from presto_tpu_torch.ops import join as J
+    cust, orders = _q13_join_inputs(conn, dev)
+    ph, bh_sorted, order = _sorted_build(cust, orders)
+    pv, bv = [cust.columns[0].values], [orders.columns[0].values]
+    cases = [_probe_case("q13 customer x orders", ph, bh_sorted, order, pv,
+                         bv, mode)
+             for mode in (J.WINDOW, J.FIRST, J.LAST, J.ALL)]
     line = conn.table("lineitem").page(["l_orderkey"], device=dev)
     okeys = conn.table("orders").page(["o_orderkey"], device=dev)
     lph, lbh_sorted, lorder = _sorted_build(line, okeys)
-    modes = [_probe_case("q18 lineitem x orders", lph, lbh_sorted, lorder,
-                         [line.columns[0].values],
-                         [okeys.columns[0].values], J.LAST, repeat)]
+    cases.append(_probe_case("q18 lineitem x orders", lph, lbh_sorted,
+                             lorder, [line.columns[0].values],
+                             [okeys.columns[0].values], J.LAST))
     for what, page in (("orders by orderkey", okeys),
                        ("orders by custkey", orders)):
         _ph, bh, bs, order_ = J._sorted_build(
@@ -1086,12 +1236,57 @@ def kernel_join_probe(conn, dev, repeat):
             page.row_valid(), page.row_valid())
         cand = J._dup_candidates(bs, order_)
         vals = [page.columns[0].values]
-        modes.append(_probe_case(
+        cases.append(_probe_case(
             f"dup count of {what} ({int(cand.sum())} candidates)",
-            torch.where(cand, bh, -1), bs, order_, vals, vals, J.FIRST,
-            repeat))
-    print("join_probe modes on the merge path: " + json.dumps(modes),
-          flush=True)
+            torch.where(cand, bh, -1), bs, order_, vals, vals, J.FIRST))
+    nb = bh_sorted.shape[0]
+    cases.append(_probe_case(
+        "empty build side", ph, torch.full_like(bh_sorted, -2),
+        torch.arange(nb, dtype=torch.int64, device=dev), pv, bv, J.FIRST))
+    cases.append(_probe_case("dead probes", torch.full_like(ph, -1),
+                             bh_sorted, order, pv, bv, J.FIRST))
+    rng = np.random.default_rng([SEED, 5])
+    keep = torch_from(rng.random(nb) < 64 / nb, dev)  # a HAVING page's few
+    sbs, sorder = torch.sort(torch.where(keep, bh_sorted[torch.argsort(
+        order)], -2), stable=True)
+    cases.append(_probe_case(f"sparse build side ({int(keep.sum())} live)",
+                             ph, sbs, sorder, pv, bv, J.FIRST))
+    nb, width = 131_072, 100_000
+    bkeys = rng.permutation(nb).astype(np.int64) * 7919 + 13   # distinct
+    bh = torch.full((nb,), 1 << 61, dtype=torch.int64, device=dev)
+    bh[width:] = -2
+    wbs, word = torch.sort(bh, stable=True)
+    wbv = [torch_from(bkeys, dev)]
+    first = bkeys[word[nb - width:nb - width + 32].cpu().numpy()]
+    last = bkeys[word[nb - 32:].cpu().numpy()]
+    n = 262_144
+    wph = torch.full((n,), 1 << 61, dtype=torch.int64, device=dev)
+    wph[::9] = -1
+    for mode, pick in ((J.WINDOW, first), (J.FIRST, first), (J.LAST, last)):
+        cases.append(_probe_case(
+            f"one window of {width} equal hashes", wph, wbs, word,
+            [torch_from(rng.choice(pick, n), dev)], wbv, mode))
+    for nb in ((1 << 20) - 1, (1 << 20) + 1):
+        bk = rng.integers(0, nb // 2, nb)
+        bh, bvals = _hashed_keys(bk, rng.random(nb) < 0.02, -2, dev)
+        pk = rng.integers(0, nb // 2, n)
+        ph_, pvals = _hashed_keys(pk, rng.random(n) < 0.05, -1, dev)
+        bs, order_ = torch.sort(bh, stable=True)
+        cases.extend(_probe_case(f"build of {nb} rows", ph_, bs, order_,
+                                 [pvals], [bvals], mode)
+                     for mode in (J.WINDOW, J.FIRST, J.LAST, J.ALL))
+    return cases
+
+
+def kernel_join_probe(conn, dev, repeat):
+    """K5 at phase 3's shapes (join_probe_cases), each held exactly against
+    the plain version; the kernel line's time is q13's WINDOW probe (the
+    expansion join's), beside two torch.searchsorted calls, and every case
+    is printed on a line of its own."""
+    results = [run_join_probe_case(c, repeat)
+               for c in join_probe_cases(conn, dev)]
+    print("join_probe cases: " + json.dumps(results), flush=True)
+    window = results[0]
     return {"name": "join_probe", "route": "cuda",
             "source": "presto_tpu_torch/csrc/join.cu",
             "replaces": "presto_tpu/ops/join.py:45",
@@ -1103,7 +1298,7 @@ def kernel_join_probe(conn, dev, repeat):
             # the 50 MB L2 cache across the timed calls
             "bound_ms": window["bound_ms"],
             "bound_by": "bytes",
-            "library_ms": cuda_time_ms(library, repeat)}
+            "library_ms": window["library_ms"]}
 
 
 def kernel_join_expand(conn, dev, repeat):
@@ -2128,9 +2323,9 @@ def breadth_path(ds_conn, h_conn, counters) -> dict:
             per_query.setdefault(name, []).append(
                 [k.launches - b for k, b in zip(counters, before)])
     launches = {k.__name__: k.launches for k in counters}
-    for k in counters[6:]:
-        if launches[k.__name__] == 0:
-            fail(f"kernel {k.__name__} was not launched on the breadth path")
+    for name in ("segmented_scan", "key_change_flags", "window_frame"):
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched on the breadth path")
 
     cpu = {"ds": LocalEngine(ds_conn, device="cpu"),
            "h": LocalEngine(h_conn, device="cpu")}
@@ -2160,19 +2355,25 @@ def breadth_path(ds_conn, h_conn, counters) -> dict:
 
 
 class ModeCount:
-    """A kernel mode's launch count (the wrapper's `sum128_launches`),
-    read and reset as a wrapper's `launches` is."""
+    """A kernel mode's launch count (the wrapper's `sum128_launches`, or
+    with `mode` its entry of `mode_launches`), read and reset as a
+    wrapper's `launches` is."""
 
-    def __init__(self, fn, name: str):
-        self.fn, self.__name__ = fn, name
+    def __init__(self, fn, name: str, mode=None):
+        self.fn, self.__name__, self.mode = fn, name, mode
 
     @property
     def launches(self) -> int:
-        return self.fn.sum128_launches
+        if self.mode is None:
+            return self.fn.sum128_launches
+        return self.fn.mode_launches[self.mode]
 
     @launches.setter
     def launches(self, v: int) -> None:
-        self.fn.sum128_launches = v
+        if self.mode is None:
+            self.fn.sum128_launches = v
+        else:
+            self.fn.mode_launches[self.mode] = v
 
 
 def _half_up(num: int, den: int) -> int:
@@ -2742,22 +2943,26 @@ def main() -> int:
     counters = [direct_agg, compact_indices, segment_reduce, hash_columns,
                 join_probe, join_expand, segmented_scan, key_change_flags,
                 window_frame]
+    # join_probe's launches by mode, counted in the same windows as the
+    # kernels' launches of phase 4 (and not in phase 5)
+    probe_modes = [ModeCount(join_probe, f"join_probe_{m}", i)
+                   for i, m in enumerate(MODE_NAMES)]
     calls = CallCounter()
     t0 = time.perf_counter()
-    launches = main_path(conn, counters)
+    launches = main_path(conn, counters + probe_modes)
     print(f"phase 4a: TPC-H main path in {time.perf_counter() - t0:.1f} s; "
           f"launches {launches}; torch-op stage calls {calls.counts}",
           flush=True)
     calls.reset()
     t0 = time.perf_counter()
-    breadth = breadth_path(ds_conn, conn, counters)
+    breadth = breadth_path(ds_conn, conn, counters + probe_modes)
     print(f"phase 4b: breadth path in {time.perf_counter() - t0:.1f} s; "
           f"launches {breadth}; torch-op stage calls {calls.counts}",
           flush=True)
     del ds_conn
     decimal_counters = [int128_op, ModeCount(direct_agg, "direct_agg_sum128"),
                         ModeCount(segment_reduce, "segment_reduce_sum128")] \
-        + counters
+        + counters + probe_modes
     calls.reset()
     t0 = time.perf_counter()
     decimal = decimal_path(dec_conn, decimal_counters)
@@ -2767,7 +2972,7 @@ def main() -> int:
     nested_counters = [unnest_expand] + counters
     calls.reset()
     t0 = time.perf_counter()
-    unnest = nested_path(conn, nested, nested_counters)
+    unnest = nested_path(conn, nested, nested_counters + probe_modes)
     print(f"phase 4d: nested path in {time.perf_counter() - t0:.1f} s; "
           f"launches {unnest}; torch-op stage calls {calls.counts}",
           flush=True)
@@ -2775,13 +2980,17 @@ def main() -> int:
     approx_counters = [hll_registers, segment_pick] + counters
     calls.reset()
     t0 = time.perf_counter()
-    approx = approx_path(conn, approx_counters)
+    approx = approx_path(conn, approx_counters + probe_modes)
     print(f"phase 4e: approx path in {time.perf_counter() - t0:.1f} s; "
           f"launches {approx}; torch-op stage calls {calls.counts}",
           flush=True)
     for r in report:
         r["launches"] = sum(path.get(r["name"], 0) for path in (
             launches, breadth, decimal, unnest, approx))
+    paths = (launches, breadth, decimal, unnest, approx)
+    print("join_probe launches by mode on the main paths: " + json.dumps(
+        {m: sum(path[f"join_probe_{m}"] for path in paths)
+         for m in MODE_NAMES}), flush=True)
     t0 = time.perf_counter()
     sqlite_phase(counters)
     docs_phase(nested_counters)

@@ -53,7 +53,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "hash": {"hash_columns": [_P, _P, _P, _I32, _I64, _P, _P]},
     "join": {
         "join_probe": [_P, _I64, _P, _P, _I64, _P, _P, _P, _P, _I32, _I32,
-                       _P, _P, _P, _P, _P],
+                       _P, _P, _P, _P, _P, _P],
         "join_expand": [_P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _I32,
                         _I64, _P, _P, _P, _P, _P, _P, _P]},
     "seg_scan": {
@@ -77,8 +77,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 #: entry points that return the int64 words of scratch a launch takes, so
 #: that the layout is written down in its .cu file alone
 SCRATCH_SIGNATURES: Dict[str, Dict[str, list]] = {
+    "direct_agg": {"direct_agg_scratch_words": [_P]},
     "compact": {"compact_scratch_words": [_I64]},
     "segment_reduce": {"segment_reduce_scratch_words": [_I64, _I64]},
+    "join": {"join_probe_scratch_words": [_I64]},
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

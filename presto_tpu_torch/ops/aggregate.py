@@ -122,8 +122,6 @@ def _kernel_values(vals):
 
 _DA_MAX_KEYS = 6
 _DA_MAX_INPUTS = 12
-_DA_SCRATCH_WORDS = 1 << 20
-_DA_SMEM_BYTES = 49152
 _DTYPE_CODES = {torch.float64: 0, torch.int64: 1, torch.int32: 2}
 _DT_LIMBS = 3
 
@@ -152,7 +150,6 @@ class _DirectAggArgs(ctypes.Structure):
         ("mx", ctypes.c_void_p),
         ("in_limbs", (ctypes.c_void_p * 4) * _DA_MAX_INPUTS),
         ("lsum", ctypes.c_void_p),
-        ("per_input", ctypes.c_int32),
     ]
 
 
@@ -260,8 +257,8 @@ def direct_agg(capacity: int, num_rows: torch.Tensor,
     "lsum" [inputs, 4, bins], the wrapping int64 sums of the inputs' limb
     lanes l3..l0 (integer values decompose as int128.from_int64). On CPU
     tensors this is the plain version; on CUDA tensors it launches the
-    kernel, once per chunk of at most 12 inputs (fewer where the chunk's
-    accumulators would not fit the kernel's shared memory)."""
+    kernel, once per chunk of at most 12 inputs, with int64 scratch of the
+    size the library's `direct_agg_scratch_words` gives for the chunk."""
     if len(keys) != len(domains) or len(keys) > _DA_MAX_KEYS:
         raise ValueError(f"direct_agg: at most {_DA_MAX_KEYS} keys, one "
                          f"domain each")
@@ -304,7 +301,6 @@ def direct_agg(capacity: int, num_rows: torch.Tensor,
     keys = [(c.contiguous(), n.contiguous()) for c, n in keys]
     mask = mask.contiguous() if mask is not None else None
     lib = native.load("direct_agg")
-    scratch = torch.empty(_DA_SCRATCH_WORDS, dtype=torch.int64, device=dev)
     n_in = len(inputs)
     rows = torch.empty(bins, dtype=torch.int64, device=dev)
     out = {"rows": rows,
@@ -314,16 +310,12 @@ def direct_agg(capacity: int, num_rows: torch.Tensor,
            "isum": torch.empty((n_in, bins), dtype=torch.int64, device=dev),
            "mn": torch.empty((n_in, bins), dtype=torch.int64, device=dev),
            "mx": torch.empty((n_in, bins), dtype=torch.int64, device=dev),
-           "lsum": torch.zeros((n_in, 4, bins), dtype=torch.int64,
+           "lsum": torch.empty((n_in, 4, bins), dtype=torch.int64,
                                device=dev)}
-    # accumulators per input: 5, or 9 with the limb sums; a chunk's
-    # accumulators for one warp must fit the kernel's shared memory
-    wide = any(w & WANT_SUM128 for _v, _nl, w in inputs)
-    per_input = 9 if wide else 5
-    per_chunk = min(_DA_MAX_INPUTS,
-                    (_DA_SMEM_BYTES // (8 * bins) - 1) // per_input)
-    chunks = [list(range(i, min(i + per_chunk, n_in)))
-              for i in range(0, n_in, per_chunk)] or [[]]
+    # a launch takes at most 12 inputs (the kernel splits their
+    # accumulators into groups that fit its shared memory)
+    chunks = [list(range(i, min(i + _DA_MAX_INPUTS, n_in)))
+              for i in range(0, n_in, _DA_MAX_INPUTS)] or [[]]
     keep_alive = []
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -339,7 +331,6 @@ def direct_agg(capacity: int, num_rows: torch.Tensor,
                 a.key_nulls[k] = knulls.data_ptr()
                 a.key_domain[k] = dom
             a.num_inputs = len(chunk)
-            a.per_input = per_input
             for slot, j in enumerate(chunk):
                 vals, nulls, want = inputs[j]
                 nulls = nulls.contiguous() if nulls is not None else None
@@ -364,9 +355,11 @@ def direct_agg(capacity: int, num_rows: torch.Tensor,
                 t = out[name]
                 setattr(a, name, t.data_ptr() + j0 * bins * t.element_size())
             a.lsum = out["lsum"].data_ptr() + j0 * 4 * bins * 8
+            words = lib.direct_agg_scratch_words(ctypes.byref(a))
+            scratch = torch.empty(words, dtype=torch.int64, device=dev)
             rc = lib.direct_agg(ctypes.byref(a),
                                 ctypes.c_void_p(scratch.data_ptr()),
-                                _DA_SCRATCH_WORDS, ctypes.c_void_p(stream))
+                                words, ctypes.c_void_p(stream))
             native.check(rc, "direct_agg", "direct_agg")
             direct_agg.launches += 1
             if any(inputs[j][2] & WANT_SUM128 for j in chunk):

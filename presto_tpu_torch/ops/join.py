@@ -1,5 +1,6 @@
-"""Joins: a build side sorted by key hash, binary-searched probe windows
-with an exact key recheck, and a prefix-sum pair expansion.
+"""Joins: a build side sorted by key hash, probe windows found through a
+radix directory with an exact key recheck, and a prefix-sum pair
+expansion.
 
 The port's twin of presto_tpu/ops/join.py, with the same functions,
 signatures and results:
@@ -13,11 +14,12 @@ signatures and results:
 
 The TPU design of `merge_join` co-sorts build and probe rows by key and
 fills build rows forward with blocked scans, because binary search over
-millions of probes serialises on a TPU. On the card a binary search per
-probe row is cheap, so both joins share one probe: the build side is
-sorted stably by `hash_columns` (kernel K4), and the hand-written
-`join_probe` kernel (K5, csrc/join.cu) binary-searches each probe row's
-window of equal hashes and walks it with an exact key recheck. The
+millions of probes serialises on a TPU. On the card a search per probe
+row is cheap, so both joins share one probe: the build side is sorted
+stably by `hash_columns` (kernel K4), and the hand-written `join_probe`
+kernel (K5, csrc/join.cu) finds each probe row's window of equal hashes
+through a radix directory over the sorted hashes and walks it with an
+exact key recheck. The
 expansion join then lays out its (probe, build) pairs with `join_expand`
 (K6). Survivors are gathered by torch indexing and compacted with
 `compact_indices` (K2).
@@ -167,6 +169,8 @@ def join_probe(ph: torch.Tensor, bh_sorted: torch.Tensor,
     bflag = (torch.zeros(bcap, dtype=torch.bool, device=dev)
              if mode == ALL else None)
     lib = native.load("join")
+    scratch = torch.empty(lib.join_probe_scratch_words(bcap),
+                          dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.join_probe(
@@ -177,13 +181,16 @@ def join_probe(ph: torch.Tensor, bh_sorted: torch.Tensor,
             ctypes.c_void_p(lo.data_ptr()), ctypes.c_void_p(cnt.data_ptr()),
             ctypes.c_void_p(hit.data_ptr() if hit is not None else 0),
             ctypes.c_void_p(bflag.data_ptr() if bflag is not None else 0),
-            ctypes.c_void_p(stream))
+            ctypes.c_void_p(scratch.data_ptr()), ctypes.c_void_p(stream))
     native.check(rc, "join_probe", "join")
     join_probe.launches += 1
+    join_probe.mode_launches[mode] += 1
     return lo, cnt, hit, bflag
 
 
 join_probe.launches = 0
+#: launches by mode (WINDOW, FIRST, LAST, ALL)
+join_probe.mode_launches = [0, 0, 0, 0]
 
 
 # ---------------------------------------------------------------------------

@@ -95,6 +95,109 @@ def test_direct_agg_kernel_matches_plain(cuda, cap, n):
     _close(got["fsum"], plain["fsum"])
 
 
+def _bits(t):
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
+def _direct_agg_case(rng, case, cap, n):
+    """(keys, domains, inputs, mask, num_rows) of one K1 card case."""
+    none = torch.zeros(cap, dtype=torch.bool)
+    f64 = [(torch.from_numpy(rng.random(cap) * s), none, A.WANT_SUM)
+           for s in (50.0, 1e5, 0.1)]
+    if case == "q01_skew":
+        pair = rng.choice(4, cap, p=[0.25, 0.25, 0.495, 0.005])
+        keys = [(torch.from_numpy(np.array([0, 2, 1, 1], np.int32)[pair]),
+                 none),
+                (torch.from_numpy(np.array([0, 0, 1, 0], np.int32)[pair]),
+                 none)]
+        return keys, [3, 2], f64, torch.from_numpy(rng.random(cap) < 0.986), n
+    if case == "global":
+        return [], [], f64[:1], torch.from_numpy(rng.random(cap) < 0.019), n
+    keys = [(torch.from_numpy(rng.integers(0, 3, cap).astype(np.int32)),
+             none),
+            (torch.from_numpy(rng.integers(0, 2, cap).astype(np.int32)),
+             none)]
+    mask = torch.from_numpy(rng.random(cap) < 0.986)
+    if case == "64x12":
+        keys = [(torch.from_numpy(rng.integers(0, 7, cap).astype(np.int32)),
+                 torch.from_numpy(rng.random(cap) < 0.05))
+                for _ in range(2)]
+        inputs = []
+        for j in range(12):
+            v = (rng.normal(0, 1e3, cap), rng.integers(-10**12, 10**12, cap),
+                 rng.integers(-10**6, 10**6, cap).astype(np.int32))[j % 3]
+            inputs.append((torch.from_numpy(v),
+                           torch.from_numpy(rng.random(cap) < 0.1),
+                           A.WANT_SUM | A.WANT_MINMAX))
+        return keys, [7, 7], inputs, mask, n
+    if case == "all_null":
+        ones = torch.ones(cap, dtype=torch.bool)
+        return keys, [3, 2], [(f64[0][0], ones, A.WANT_SUM | A.WANT_MINMAX),
+                              (torch.from_numpy(rng.integers(0, 9, cap)),
+                               ones, A.WANT_SUM)] + f64[1:], mask, n
+    if case == "num_rows0":
+        return keys, [3, 2], f64, mask, 0
+    if case == "mask_false":
+        return keys, [3, 2], f64, torch.zeros(cap, dtype=torch.bool), n
+    if case == "nan_minmax":
+        v = rng.normal(0, 1e3, cap)
+        v[::1000] = np.nan
+        w = np.where(keys[0][0].numpy() == 0, np.nan, v)
+        return keys, [3, 2], [
+            (torch.from_numpy(v), none, A.WANT_SUM | A.WANT_MINMAX),
+            (torch.from_numpy(w), none, A.WANT_MINMAX)], mask, n
+    assert case == "sum128_big"
+    lanes = _wide_lanes_np(rng, n)
+    lanes = tuple(torch.cat([x, torch.zeros(cap - n, dtype=torch.int64)])
+                  for x in lanes)
+    mask[n - 2:n] = True
+    return keys, [3, 2], [
+        (lanes, none, A.WANT_SUM128),
+        (torch.from_numpy(rng.integers(-2**62, 2**62, cap)), none,
+         A.WANT_SUM128 | A.WANT_SUM),
+        (torch.from_numpy(rng.integers(0, 11, cap)), none, A.WANT_SUM128)], \
+        mask, n
+
+
+@pytest.mark.parametrize("case", ["q01_skew", "global", "64x12", "all_null",
+                                  "num_rows0", "mask_false", "nan_minmax",
+                                  "sum128_big"])
+def test_direct_agg_cases_match_plain_and_repeat(cuda, case):
+    """K1 at the phase-3 cases of chip_smoke.py (1M rows): counts, int64
+    and limb sums, min and max exact, float sums within RTOL; two launches
+    equal bit for bit."""
+    rng = np.random.default_rng(21)
+    cap, n = 1 << 20, 1_000_003
+    keys, domains, inputs, mask, num_rows = _direct_agg_case(rng, case, cap,
+                                                             n)
+    args = (cap, torch.tensor(num_rows), keys, domains, inputs, mask)
+    plain = A.direct_agg(*args)
+    on = (cap, args[1].to(cuda), [(c.to(cuda), nl.to(cuda)) for c, nl in keys],
+          domains, [(tuple(x.to(cuda) for x in v) if isinstance(v, tuple)
+                     else v.to(cuda), nl.to(cuda), w) for v, nl, w in inputs],
+          mask.to(cuda))
+    got, again = A.direct_agg(*on), A.direct_agg(*on)
+    for name in got:
+        _same(_bits(got[name]), _bits(again[name]))
+    for name in ("rows", "cnt"):
+        _same(got[name], plain[name])
+    for j, (v, _nl, want) in enumerate(inputs):
+        if want & A.WANT_SUM128:
+            _same(got["lsum"][j], plain["lsum"][j])
+        if isinstance(v, tuple):
+            continue
+        if want & A.WANT_SUM:
+            _close(got["fsum"][j], plain["fsum"][j])
+            if v.dtype != torch.float64:
+                _same(got["isum"][j], plain["isum"][j])
+        if want & A.WANT_MINMAX:
+            for name in ("mn", "mx"):
+                g, p = got[name][j], plain[name][j]
+                if v.dtype == torch.float64:
+                    g, p = g.view(torch.float64), p.view(torch.float64)
+                _same(g, p)
+
+
 _TILE = native.COMPACT_TILE
 
 
@@ -275,6 +378,70 @@ def test_join_probe_kernel_matches_plain(cuda, mode, dup):
         assert (g is None) == (p is None)
         if p is not None:
             _same(g, p)
+
+
+def _probe_case(rng, case):
+    """(ph, bh_sorted, order, pvals, bvals, modes) of one K5 card case."""
+    if case in ("pow2_minus_1", "pow2_plus_1"):
+        nb = (1 << 20) + (1 if case == "pow2_plus_1" else -1)
+        args = _probe_inputs(rng, 262_144, nb, nb // 2, True)
+        return args + ([J.WINDOW, J.FIRST, J.LAST, J.ALL],)
+    if case in ("empty_build", "sparse_build", "sparse_build_2000",
+                "dead_probes"):
+        ph, bh_sorted, order, pvals, bvals = _probe_inputs(
+            rng, 262_144, 200_000, 300_000, True)
+        if case == "empty_build":
+            bh_sorted = torch.full_like(bh_sorted, -2)
+        elif case.startswith("sparse_build"):
+            # 64 or 2,000 live rows, fewer than one in 65: no sampled
+            # position is live, so the directory is one bucket
+            live = 2_000 if case.endswith("2000") else 64
+            bh = bh_sorted[torch.argsort(order)]
+            keep = torch.zeros_like(bh, dtype=torch.bool)
+            keep[torch.from_numpy(rng.choice(bh.shape[0], live,
+                                             replace=False))] = True
+            bh_sorted, order = torch.sort(torch.where(keep, bh, -2),
+                                          stable=True)
+        else:
+            ph = torch.full_like(ph, -1)
+        return ph, bh_sorted, order, pvals, bvals, [J.WINDOW, J.FIRST,
+                                                    J.LAST, J.ALL]
+    # one window of 100,000 equal hashes with differing keys; the probe
+    # keys lie among the window's first (FIRST) or last (LAST) 32 rows
+    nb, width = 131_072, 100_000
+    bk = torch.from_numpy(rng.permutation(nb).astype(np.int64) * 7 + 3)
+    bh = torch.full((nb,), 1 << 61, dtype=torch.int64)
+    bh[width:] = -2
+    bh_sorted, order = torch.sort(bh, stable=True)
+    edge = order[nb - width:nb - width + 32] if case == "window_first" \
+        else order[nb - 32:]
+    pk = bk[edge[torch.from_numpy(rng.integers(0, 32, 65_536))]]
+    ph = torch.full((65_536,), 1 << 61, dtype=torch.int64)
+    ph[::9] = -1
+    modes = [J.WINDOW, J.FIRST] if case == "window_first" else [J.LAST]
+    return ph, bh_sorted, order, [pk], [bk], modes
+
+
+@pytest.mark.parametrize("case", ["pow2_minus_1", "pow2_plus_1",
+                                  "empty_build", "sparse_build",
+                                  "sparse_build_2000", "dead_probes",
+                                  "window_first", "window_last"])
+def test_join_probe_cases_match_plain_and_repeat(cuda, case):
+    """K5 at the phase-3 cases of chip_smoke.py: every output exactly the
+    plain version's, two launches equal."""
+    rng = np.random.default_rng(44)
+    ph, bh_sorted, order, pvals, bvals, modes = _probe_case(rng, case)
+    on = [t.to(cuda) for t in (ph, bh_sorted, order)]
+    pv, bv = [v.to(cuda) for v in pvals], [v.to(cuda) for v in bvals]
+    for mode in modes:
+        plain = J.join_probe(ph, bh_sorted, order, pvals, bvals, mode)
+        got = J.join_probe(*on, pv, bv, mode)
+        again = J.join_probe(*on, pv, bv, mode)
+        for g, a, p in zip(got, again, plain):
+            assert (g is None) == (p is None)
+            if p is not None:
+                _same(g, p)
+                _same(a, p)
 
 
 @pytest.mark.parametrize("out_cap", [4096, 1 << 20])

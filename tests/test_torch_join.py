@@ -12,6 +12,8 @@ PyTorch versions on CPU tensors), and compares:
   from two dictionaries;
 - ops/join.hash_join (K4 + K5 + K6): inner and left with duplicates and
   NULL keys, overflow of the pair capacity, a cross join, semi and anti;
+- both joins on one long collision window (the port's hash patched to
+  one value, so every key shares a window) and on an empty build side;
 - the kernels' plain versions against their formulas.
 
 Tolerance: none. Hashes, pages (row for row, in order), dup counts, match
@@ -354,3 +356,64 @@ def test_subnormal_keys_join_like_jax(jt):
         _hash_both(rp, pp, rb, pb, (0,), (0,), 1024, jt)
     h = PK.hash_columns([pp.columns[0]]).numpy()
     assert h[0] == h[1] == h[2] == h[3] == h[6]
+
+
+# ---------------------------------------------------------------------------
+# a long collision window and an empty build side (K5's directory cases)
+# ---------------------------------------------------------------------------
+
+def _one_hash(monkeypatch):
+    """Every live key of the port hashes to 0: the build side is one
+    collision window of differing keys, which the key recheck splits. The
+    JAX package keeps its own hash; results compare row for row, since a
+    stable sort keeps key-equal build rows in row order either way."""
+    real = PJ.hash_columns
+    monkeypatch.setattr(PJ, "hash_columns", lambda cols: real(cols) & 0)
+
+
+@pytest.mark.parametrize("jt", ["inner", "left", "full", "semi", "anti",
+                                "anti_exists"])
+def test_merge_join_on_one_collision_window_matches_jax(monkeypatch, jt):
+    rng = np.random.default_rng(35)
+    rp, pp, rb, pb = _join_sides(rng, np_rows=600, nb_rows=300,
+                                 nulls=(jt != "anti"))
+    _one_hash(monkeypatch)
+    _merge_both(rp, pp, rb, pb, (0,), (0,), jt)
+
+
+@pytest.mark.parametrize("jt", ["inner", "semi", "anti_exists"])
+def test_hash_join_on_one_collision_window_matches_jax(monkeypatch, jt):
+    """The page equals the JAX function's; the pair total counts every
+    candidate of the window: each live probe row against each live build
+    row. (A LEFT join null-extends each non-matching candidate, as the JAX
+    function would under a 63-bit collision, so it has no JAX twin here.)"""
+    rng = np.random.default_rng(36)
+    rp, pp, rb, pb = _join_sides(rng, np_rows=600, nb_rows=300, dup=True,
+                                 key_range=150)
+    _one_hash(monkeypatch)
+    r_out, _ = RJ.hash_join(rp, rb, (0,), (0,), 1 << 18, jt)
+    p_out, p_total = PJ.hash_join(pp, pb, (0,), (0,), 1 << 18, jt)
+    _same_page(p_out, r_out)
+    live_p = int((~pp.columns[0].nulls[:600]).sum())
+    live_b = int((~pb.columns[0].nulls[:300]).sum())
+    assert int(p_total) == live_p * live_b
+
+
+@pytest.mark.parametrize("jt", ["inner", "left", "full", "semi", "anti",
+                                "anti_exists"])
+def test_merge_join_on_an_empty_build_side_matches_jax(jt):
+    rng = np.random.default_rng(37)
+    rp, pp, _rb, _pb = _join_sides(rng, np_rows=700)
+    build = [("bigint", np.zeros(0, np.int64), np.zeros(0, bool), None),
+             ("integer", np.zeros(0, np.int32), np.zeros(0, bool), None)]
+    rb, pb = _pages(build, 0)
+    _merge_both(rp, pp, rb, pb, (0, 1), (0, 1), jt)
+
+
+@pytest.mark.parametrize("jt", ["inner", "left", "semi", "anti"])
+def test_hash_join_on_an_empty_build_side_matches_jax(jt):
+    rng = np.random.default_rng(38)
+    rp, pp, _rb, _pb = _join_sides(rng, np_rows=700)
+    build = [("bigint", np.zeros(0, np.int64), np.zeros(0, bool), None)]
+    rb, pb = _pages(build, 0)
+    _hash_both(rp, pp, rb, pb, (0,), (0,), 4096, jt)

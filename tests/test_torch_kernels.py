@@ -7,6 +7,7 @@ wrappers take their plain PyTorch versions on CPU tensors), and compares:
 - direct aggregation (kernel K1): ops/aggregate.grouped_aggregate on
   dictionary/boolean keys, with NULL keys and values, a fused row mask, an
   empty mask, a group whose inputs are all NULL, and global aggregation;
+  and at 64 bins, the kernel's largest domain, with an all-NULL input;
 - sorted aggregation (K2 + K3): large-domain keys, capacity overflow;
 - compaction (K2): data/column.compact and the survivor permutation, on
   one tile and across several of the kernel's tiles;
@@ -143,6 +144,43 @@ def test_direct_aggregate_matches_jax(case, group_fields):
         # SQL global aggregation over nothing: one row, count 0, sum NULL
         row = out.to_pylist()[0]
         assert row[0] == 0 and row[2] is None
+
+
+def test_direct_aggregate_at_64_bins_matches_jax():
+    """The direct path at its largest domain: two 7-word dictionary keys
+    with NULLs make 64 bins, the last of them the rows whose keys are
+    both NULL; one input is NULL on every row."""
+    rng = np.random.default_rng(16)
+    words = [f"k{i}" for i in range(7)]
+    k1n, k2n = rng.random(N) < 0.15, rng.random(N) < 0.15
+    k1n[:40] = k2n[:40] = True
+    cols = [("varchar", rng.integers(0, 7, N).astype(np.int32), k1n, words),
+            ("varchar", rng.integers(0, 7, N).astype(np.int32), k2n, words),
+            ("double", rng.normal(0.0, 1.0, N), np.ones(N, bool), None),
+            ("bigint", rng.integers(-10**6, 10**6, N), rng.random(N) < 0.2,
+             None),
+            ("double", rng.normal(100.0, 30.0, N), rng.random(N) < 0.1, None)]
+    ref, port = _pages(cols)
+    assert PA._direct_domains(port, (0, 1)) == ([7, 7], 64)
+
+    def aggs(T, mod):
+        S = mod.AggSpec
+        return [S("count_star", None, T.BIGINT), S("count", 2, T.BIGINT),
+                S("sum", 2, T.DOUBLE), S("min", 2, T.DOUBLE),
+                S("max", 2, T.DOUBLE), S("sum", 3, T.BIGINT),
+                S("min", 3, T.BIGINT), S("avg", 4, T.DOUBLE),
+                S("max", 4, T.DOUBLE)]
+
+    mask = rng.random(CAP) < 0.9
+    r_out, r_true = RA.grouped_aggregate(ref, (0, 1), aggs(RT, RA), 64,
+                                         row_mask=jnp.asarray(mask))
+    p_out, p_true = PA.grouped_aggregate(port, (0, 1), aggs(PT, PA), 64,
+                                         row_mask=torch.from_numpy(mask))
+    assert int(p_true) == int(r_true) == 64
+    rows = p_out.to_pylist()
+    assert_rows_match(rows, r_out.to_pylist(), float_tol=TOL)
+    assert rows[-1][:2] == [None, None] or rows[-1][:2] == (None, None)
+    assert all(r[3] == 0 and r[4] is None for r in rows)   # the NULL input
 
 
 def test_direct_aggregate_takes_the_kernel_path():
