@@ -1638,47 +1638,17 @@ def _orders_window(conn, dev):
     return page, W.sort_window(page, (0,), [SortKey(1)])
 
 
-def _scan_case(what, x, op, reverse, seg, repeat, library=None) -> dict:
-    """One segmented_scan call held against its plain version (exact, or
-    float64 sums within RTOL_SUM) and timed beside it, its bound and a
-    library call where one computes the same function."""
-    from presto_tpu_torch.ops import scan as S
-
-    def kernel():
-        return S.segmented_scan(x, op, reverse, seg)
-
-    def plain():
-        return S._segmented_scan_plain(x, op, reverse, seg)
-
-    got, want = kernel(), plain()
-    if op == "add" and x.dtype.is_floating_point:
-        err = close(got, want, RTOL_SUM)
-    else:
-        if not exact(got, want):
-            fail(f"segmented_scan ({what}) differs from the plain version")
-        err = 0.0
-    n = x.shape[0]
-    # each value (or present flag) and segment flag read once, each result
-    # written once
-    nbytes = n * (x.element_size() + (1 if seg is not None else 0)
-                  + got.element_size())
-    return {"case": what, "rows": n, "max_abs_err": err,
-            "ms": cuda_time_ms(kernel, repeat),
-            "plain_ms": cuda_time_ms(plain, max(repeat // 4, 2)),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "library_ms": (cuda_time_ms(library, repeat)
-                           if library is not None else None)}
-
-
-def kernel_seg_scan(q51_calls, conn, dev, repeat):
-    """K7 at the breadth path's SF1 shapes: the running sum and running
-    max of TPC-DS q51's largest window inputs (partition by item, order by
-    date, ROWS UNBOUNDED PRECEDING), the last-present-position fill of
-    orders' partition starts (partition by o_custkey), and, for a library
-    yardstick, the same values scanned without segments beside
-    torch.cumsum and torch.cummax. The kernel line is the running sum:
-    no single PyTorch call computes a segmented sum."""
+def seg_scan_cases(q51_calls, conn, dev) -> list:
+    """Phase 3's K7 shapes: the running sum and running max of TPC-DS
+    q51's largest window inputs (partition by item, order by date, ROWS
+    UNBOUNDED PRECEDING), the same values scanned without segments beside
+    torch.cumsum and torch.cummax (the same functions), the forward and
+    reverse last-present-position scans of orders' partition starts and
+    ends (partition by o_custkey), and window_bounds over orders' partition
+    and peer start flags (the four such scans of one window in one
+    launch)."""
     import torch
+    from presto_tpu_torch.ops import scan as S
     from presto_tpu_torch.ops import window as W
     cases = []
     for kind in ("sum", "max"):
@@ -1689,73 +1659,224 @@ def kernel_seg_scan(q51_calls, conn, dev, repeat):
         sw = W.sort_window(page, pf, ok)
         live = sw.s_valid & ~page.columns[spec.field].nulls[sw.perm]
         v = page.columns[spec.field].values[sw.perm].to(torch.float64)
-        if kind == "sum":
-            x = torch.where(live, v, 0.0)
-        else:
-            x = torch.where(live, v, float("-inf"))
+        op = "add" if kind == "sum" else "max"
+        x = torch.where(live, v, 0.0 if kind == "sum" else float("-inf"))
         rows = int(page.num_rows)
-        cases.append(_scan_case(f"q51 running {kind} ({rows} rows)", x,
-                                "add" if kind == "sum" else "max", False,
-                                sw.part_start, repeat))
-        if kind == "sum":
-            cases.append(_scan_case(
-                f"q51 {kind} values, one segment", x, "add", False, None,
-                repeat, library=lambda x=x: torch.cumsum(x, 0)))
-        else:
-            cases.append(_scan_case(
-                f"q51 {kind} values, one segment", x, "max", False, None,
-                repeat, library=lambda x=x: torch.cummax(x, 0)))
+        cases.append({"case": f"q51 running {kind} ({rows} rows)", "x": x,
+                      "op": op, "reverse": False, "seg": sw.part_start,
+                      "library": None})
+        cases.append({"case": f"q51 {kind} values, one segment", "x": x,
+                      "op": op, "reverse": False, "seg": None,
+                      "library": (torch.cumsum if kind == "sum"
+                                  else torch.cummax)})
     _page, sw = _orders_window(conn, dev)
-    cases.append(_scan_case("orders partition starts, last present",
-                            sw.part_start, "last", False, None, repeat))
-    cases.append(_scan_case("orders partition ends, last present reversed",
-                            sw.part_end, "last", True, None, repeat))
-    print("segmented_scan cases: " + json.dumps(cases), flush=True)
-    line = cases[0]
-    return {"name": "segmented_scan", "route": "cuda",
-            "source": "presto_tpu_torch/csrc/seg_scan.cu",
-            "replaces": "presto_tpu/ops/scan.py:104",
-            "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "ms": line["ms"], "plain_ms": line["plain_ms"],
-            "bound_ms": line["bound_ms"], "bound_by": "bytes",
-            # no single PyTorch call computes a segmented running sum
-            "library_ms": None}
+    cases.append({"case": "orders partition starts, last present",
+                  "x": sw.part_start, "op": "last", "reverse": False,
+                  "seg": None, "library": None})
+    cases.append({"case": "orders partition ends, last present reversed",
+                  "x": S.shift_left(sw.part_start), "op": "last",
+                  "reverse": True, "seg": None, "library": None})
+    cases.append({"case": "orders window bounds", "op": "bounds",
+                  "part_start": sw.part_start, "peer_start": sw.peer_start})
+    return cases
 
 
-def kernel_key_change(conn, dev, repeat):
-    """K8 at the running-sum query's SF1 shape: the partition and peer
-    flags of orders (2,097,152-row page) sorted by o_custkey, o_orderdate;
-    also the first flags of a distinct mark over the same keys."""
-    from presto_tpu_torch.ops import keys as K
-    page, sw = _orders_window(conn, dev)
-    perm, keys = sw.perm, sw.keys
+def _four_scans(S, part, peer):
+    """A window's four position scans as separate segmented_scan launches
+    (with the two shifts), for a checkout whose ops/scan.py has no
+    window_bounds."""
+    from presto_tpu_torch.ops.scan import shift_left
+    return (S.segmented_scan(part, "last"),
+            S.segmented_scan(shift_left(part), "last", True),
+            S.segmented_scan(peer, "last"),
+            S.segmented_scan(shift_left(peer), "last", True))
+
+
+def run_scan_case(c, repeat, S=None) -> dict:
+    """One K7 case (seg_scan_cases) held against its plain version (exact;
+    float64 sums within RTOL_SUM and bit for bit between two launches) and
+    timed beside it, its bound and the library call where one computes the
+    same function. S: the module whose wrappers run (default: this
+    checkout's ops/scan); the bounds case runs as four segmented_scan
+    launches where S has no window_bounds."""
+    import torch
+    from presto_tpu_torch.ops import scan as mine
+    if S is None:
+        S = mine
+    if c["op"] == "bounds":
+        part, peer = c["part_start"], c["peer_start"]
+        if hasattr(S, "window_bounds"):
+            def kernel():
+                return S.window_bounds(part, peer)
+        else:
+            def kernel():
+                return _four_scans(S, part, peer)
+
+        def plain():
+            return mine._window_bounds_plain(part, peer)
+
+        for g, a, w in zip(kernel(), kernel(), plain()):
+            if not (exact(g, w) and exact(g, a)):
+                fail(f"window_bounds ({c['case']}) differs from the plain "
+                     f"version or between two launches")
+        n = part.shape[0]
+        return {"case": c["case"], "op": "bounds", "rows": n,
+                "max_abs_err": 0.0, "ms": cuda_time_ms(kernel, repeat),
+                "plain_ms": cuda_time_ms(plain, max(repeat // 4, 2)),
+                # two flags read, four int64 positions written
+                "bound_ms": n * (2 + 32) / HBM_BYTES_PER_S * 1e3,
+                "library_ms": None}
+    x, op, reverse, seg = c["x"], c["op"], c["reverse"], c["seg"]
 
     def kernel():
-        return K.key_change_flags(perm, keys, page.num_rows, 1,
-                                  K.WINDOW_FLAGS)
+        return S.segmented_scan(x, op, reverse, seg)
 
     def plain():
-        return K._key_change_plain(perm, keys, page.num_rows, 1,
-                                   K.WINDOW_FLAGS)
+        return mine._segmented_scan_plain(x, op, reverse, seg)
 
-    for (g, w) in zip(kernel(), plain()):
-        if not exact(g, w):
-            fail("key_change_flags differs from the plain version")
-    first = K.key_change_flags(perm, keys, page.num_rows, 0, K.FIRST_FLAGS)
-    want = K._key_change_plain(perm, keys, page.num_rows, 0, K.FIRST_FLAGS)
-    if not exact(first[0], want[0]):
-        fail("key_change_flags (first flags) differs from the plain version")
-    cap = perm.shape[0]
-    # perm read (8 B), each key's null flag and value (1 + 8 B custkey,
-    # 1 + 4 B orderdate), two flags written
-    nbytes = cap * (8 + 9 + 5 + 2)
-    return {"name": "key_change_flags", "route": "cuda",
-            "source": "presto_tpu_torch/csrc/keys.cu",
-            "replaces": "presto_tpu/ops/window.py:171",
-            "max_abs_err": 0.0,
+    got, again, want = kernel(), kernel(), plain()
+    what = f"segmented_scan ({c['case']})"
+    if op == "add" and x.dtype.is_floating_point:
+        err = close(got, want, RTOL_SUM)
+        if not torch.equal(got.view(torch.int64), again.view(torch.int64)):
+            fail(f"{what}: two launches differ")
+    else:
+        if not (exact(got, want) and exact(got, again)):
+            fail(f"{what} differs from the plain version")
+        err = 0.0
+    n = x.shape[0]
+    # each value (or present flag) and segment flag read once, each result
+    # written once
+    nbytes = n * (x.element_size() + (1 if seg is not None else 0)
+                  + got.element_size())
+    lib = c["library"]
+    return {"case": c["case"], "op": op, "rows": n, "max_abs_err": err,
             "ms": cuda_time_ms(kernel, repeat),
             "plain_ms": cuda_time_ms(plain, max(repeat // 4, 2)),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "library_ms": (cuda_time_ms(lambda: lib(x, 0), repeat)
+                           if lib is not None else None)}
+
+
+def kernel_seg_scan(q51_calls, conn, dev, repeat):
+    """K7 at the breadth path's SF1 shapes (seg_scan_cases), each held
+    against its plain version and printed on a line of its own. The kernel
+    line is the unsegmented sum over q51's values, the case that one
+    PyTorch call (torch.cumsum) also computes."""
+    cases = [run_scan_case(c, repeat)
+             for c in seg_scan_cases(q51_calls, conn, dev)]
+    print("segmented_scan cases: " + json.dumps(cases), flush=True)
+    line = cases[1]
+    print(f"K7 unsegmented sum over {line['rows']} float64 values: "
+          f"{line['ms']:.5f} ms, torch.cumsum {line['library_ms']:.5f} ms",
+          flush=True)
+    return {"name": "segmented_scan", "route": "cuda",
+            "source": "presto_tpu_torch/csrc/seg_scan.cu",
+            "replaces": "presto_tpu/ops/scan.py:36",
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": line["ms"], "plain_ms": line["plain_ms"],
+            "bound_ms": line["bound_ms"], "bound_by": "bytes",
+            "library_ms": line["library_ms"]}
+
+
+def capture_key_changes(engine, sql: str) -> list:
+    """The key_change_flags calls (perm, keys, num_rows, n_part_keys,
+    mode) a query makes through the window and distinct operators,
+    recorded while it runs on `engine`."""
+    from presto_tpu_torch.ops import mark_distinct as M
+    from presto_tpu_torch.ops import window as W
+    calls = []
+    orig = W.key_change_flags
+
+    def record(perm, keys, num_rows, n_part_keys=0, mode=0):
+        calls.append((perm, keys, num_rows, n_part_keys, mode))
+        return orig(perm, keys, num_rows, n_part_keys, mode)
+
+    W.key_change_flags = M.key_change_flags = record
+    try:
+        engine.execute_sql(sql)
+    finally:
+        W.key_change_flags = M.key_change_flags = orig
+    return calls
+
+
+def key_change_cases(conn, dev) -> list:
+    """Phase 3's K8 shapes: the partition and peer flags of orders
+    (2,097,152-row page) sorted by o_custkey, o_orderdate (rows scattered:
+    each gather a sector of its own), and the first flags of a distinct
+    mark over the same keys; the same keys taken in row order (the
+    identity permutation: every gather coalesced), which shows what the
+    scattered gathers cost; and the largest calls of two breadth-path
+    queries, captured while they run on the card: h_rank's window over
+    lineitem by l_orderkey (rows nearly in order) and h_distinct's
+    distinct mark of l_returnflag, l_suppkey."""
+    import torch
+    from presto_tpu_torch.exec.engine import LocalEngine
+    from presto_tpu_torch.ops import keys as K
+    page, sw = _orders_window(conn, dev)
+    ident = torch.arange(sw.perm.shape[0], dtype=torch.int64, device=dev)
+    cases = [{"case": f"orders by o_custkey, o_orderdate ({name})",
+              "perm": perm, "keys": sw.keys, "num_rows": page.num_rows,
+              "npart": npart, "mode": mode}
+             for name, perm, npart, mode in (
+                 ("WINDOW", sw.perm, 1, K.WINDOW_FLAGS),
+                 ("FIRST", sw.perm, 0, K.FIRST_FLAGS),
+                 ("WINDOW, rows in row order", ident, 1, K.WINDOW_FLAGS))]
+    engine = LocalEngine(conn)
+    for name in ("h_rank", "h_distinct"):
+        calls = capture_key_changes(engine, TPCH_BREADTH[name][0])
+        perm, keys, num_rows, npart, mode = max(
+            calls, key=lambda c: c[0].shape[0])
+        cases.append({"case": f"{name}'s largest call", "perm": perm,
+                      "keys": keys, "num_rows": num_rows, "npart": npart,
+                      "mode": mode})
+    return cases
+
+
+def run_key_change_case(c, repeat, K=None) -> dict:
+    """One key_change_flags call held exactly against its plain version
+    and timed beside it and its bound. K: the module whose wrapper runs
+    (default: this checkout's ops/keys)."""
+    from presto_tpu_torch.ops import keys as mine
+    if K is None:
+        K = mine
+    args = (c["perm"], c["keys"], c["num_rows"], c["npart"], c["mode"])
+
+    def kernel():
+        return K.key_change_flags(*args)
+
+    def plain():
+        return mine._key_change_plain(*args)
+
+    for g, w in zip(kernel(), plain()):
+        if (g is None) != (w is None) or (w is not None and not exact(g, w)):
+            fail(f"key_change_flags ({c['case']}) differs from the plain "
+                 f"version")
+    cap = c["perm"].shape[0]
+    # perm read (8 B), each key's lanes at every row (null flag 1 B and
+    # value, 4 or 8 B), one flag a mode's output written
+    lane_bytes = sum((1 if nl is not None else 0)
+                     + sum(v.element_size() for v in vs)
+                     for nl, vs in c["keys"])
+    nbytes = cap * (8 + lane_bytes + (2 if c["mode"] == 0 else 1))
+    return {"case": c["case"], "rows": cap, "max_abs_err": 0.0,
+            "ms": cuda_time_ms(kernel, repeat),
+            "plain_ms": cuda_time_ms(plain, max(repeat // 4, 2)),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def kernel_key_change(conn, dev, repeat):
+    """K8 at the running-sum query's SF1 shape (key_change_cases); the
+    kernel line is the WINDOW flags."""
+    cases = [run_key_change_case(c, repeat)
+             for c in key_change_cases(conn, dev)]
+    print("key_change_flags cases: " + json.dumps(cases), flush=True)
+    line = cases[0]
+    return {"name": "key_change_flags", "route": "cuda",
+            "source": "presto_tpu_torch/csrc/keys.cu",
+            "replaces": "presto_tpu/ops/window.py:171",
+            "max_abs_err": 0.0, "ms": line["ms"],
+            "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
             "bound_by": "bytes",
             # no single PyTorch call compares keys across a permutation
             "library_ms": None}
@@ -2323,7 +2444,8 @@ def breadth_path(ds_conn, h_conn, counters) -> dict:
             per_query.setdefault(name, []).append(
                 [k.launches - b for k, b in zip(counters, before)])
     launches = {k.__name__: k.launches for k in counters}
-    for name in ("segmented_scan", "key_change_flags", "window_frame"):
+    for name in ("segmented_scan", "segmented_scan_bounds",
+                 "key_change_flags", "window_frame"):
         if launches[name] == 0:
             fail(f"kernel {name} was not launched on the breadth path")
 
@@ -2869,7 +2991,8 @@ def main() -> int:
     from presto_tpu_torch.ops.join import join_expand, join_probe
     from presto_tpu_torch.ops.keys import hash_columns, key_change_flags
     from presto_tpu_torch.connectors.tpch import nested_orders
-    from presto_tpu_torch.ops.scan import segment_reduce, segmented_scan
+    from presto_tpu_torch.ops.scan import SCAN_KINDS, segment_reduce, \
+        segmented_scan
     from presto_tpu_torch.ops.unnest import unnest_expand
     from presto_tpu_torch.ops.window import window_frame
 
@@ -2943,26 +3066,29 @@ def main() -> int:
     counters = [direct_agg, compact_indices, segment_reduce, hash_columns,
                 join_probe, join_expand, segmented_scan, key_change_flags,
                 window_frame]
-    # join_probe's launches by mode, counted in the same windows as the
-    # kernels' launches of phase 4 (and not in phase 5)
-    probe_modes = [ModeCount(join_probe, f"join_probe_{m}", i)
+    # join_probe's launches by mode and segmented_scan's by kind, counted
+    # in the same windows as the kernels' launches of phase 4 (and not in
+    # phase 5)
+    mode_counts = [ModeCount(join_probe, f"join_probe_{m}", i)
                    for i, m in enumerate(MODE_NAMES)]
+    mode_counts += [ModeCount(segmented_scan, f"segmented_scan_{k}", i)
+                    for i, k in enumerate(SCAN_KINDS)]
     calls = CallCounter()
     t0 = time.perf_counter()
-    launches = main_path(conn, counters + probe_modes)
+    launches = main_path(conn, counters + mode_counts)
     print(f"phase 4a: TPC-H main path in {time.perf_counter() - t0:.1f} s; "
           f"launches {launches}; torch-op stage calls {calls.counts}",
           flush=True)
     calls.reset()
     t0 = time.perf_counter()
-    breadth = breadth_path(ds_conn, conn, counters + probe_modes)
+    breadth = breadth_path(ds_conn, conn, counters + mode_counts)
     print(f"phase 4b: breadth path in {time.perf_counter() - t0:.1f} s; "
           f"launches {breadth}; torch-op stage calls {calls.counts}",
           flush=True)
     del ds_conn
     decimal_counters = [int128_op, ModeCount(direct_agg, "direct_agg_sum128"),
                         ModeCount(segment_reduce, "segment_reduce_sum128")] \
-        + counters + probe_modes
+        + counters + mode_counts
     calls.reset()
     t0 = time.perf_counter()
     decimal = decimal_path(dec_conn, decimal_counters)
@@ -2972,7 +3098,7 @@ def main() -> int:
     nested_counters = [unnest_expand] + counters
     calls.reset()
     t0 = time.perf_counter()
-    unnest = nested_path(conn, nested, nested_counters + probe_modes)
+    unnest = nested_path(conn, nested, nested_counters + mode_counts)
     print(f"phase 4d: nested path in {time.perf_counter() - t0:.1f} s; "
           f"launches {unnest}; torch-op stage calls {calls.counts}",
           flush=True)
@@ -2980,7 +3106,7 @@ def main() -> int:
     approx_counters = [hll_registers, segment_pick] + counters
     calls.reset()
     t0 = time.perf_counter()
-    approx = approx_path(conn, approx_counters + probe_modes)
+    approx = approx_path(conn, approx_counters + mode_counts)
     print(f"phase 4e: approx path in {time.perf_counter() - t0:.1f} s; "
           f"launches {approx}; torch-op stage calls {calls.counts}",
           flush=True)
@@ -2991,6 +3117,9 @@ def main() -> int:
     print("join_probe launches by mode on the main paths: " + json.dumps(
         {m: sum(path[f"join_probe_{m}"] for path in paths)
          for m in MODE_NAMES}), flush=True)
+    print("segmented_scan launches by kind on the main paths: " + json.dumps(
+        {k: sum(path[f"segmented_scan_{k}"] for path in paths)
+         for k in SCAN_KINDS}), flush=True)
     t0 = time.perf_counter()
     sqlite_phase(counters)
     docs_phase(nested_counters)

@@ -1,22 +1,29 @@
 #!/usr/bin/env python3
-"""K1 direct_agg and K5 join_probe against another checkout's kernels, in
-one process on one GPU.
+"""K1 direct_agg, K5 join_probe, K7 segmented_scan (and window_bounds) and
+K8 key_change_flags against another checkout's kernels, in one process on
+one GPU.
 
-    python3 kernel_ab.py OTHER [--out ab.json]
+    python3 kernel_ab.py OTHER [--out ab.json] [--only KERNEL,...]
 
 OTHER is the root of another checkout of this repository (for example the
 parent commit, unpacked with `git archive`). Its presto_tpu_torch/native.py,
-ops/aggregate.py and ops/join.py are loaded under other module names, so
-that their wrappers launch OTHER's kernels, built by OTHER's native.py from
-OTHER's csrc/ into OTHER's build directory. chip_smoke.py's phase-3 shapes
-of both kernels (direct_agg_cases, direct_agg_sum128_case, join_probe_cases;
-TPC-H SF1 for the join's) are built once; each is held against its plain
-version and between two launches under both checkouts (run_direct_agg_case,
-run_join_probe_case, which also time the plain versions and library calls),
-then timed with CUDA events (chip_smoke.cuda_time_ms, chip_smoke.REPEAT
-calls) in turns: OTHER, this checkout, this checkout, OTHER. Prints per case
-the four times and writes them, with the card's name and power limit, as
-JSON to --out. Fails where there is no CUDA device.
+ops/aggregate.py, ops/join.py, ops/scan.py and ops/keys.py are loaded under
+other module names, so that their wrappers launch OTHER's kernels, built by
+OTHER's native.py from OTHER's csrc/ into OTHER's build directory.
+chip_smoke.py's phase-3 shapes of the kernels (direct_agg_cases,
+direct_agg_sum128_case, join_probe_cases, seg_scan_cases and
+key_change_cases; TPC-H SF1 for the join's, K7's and K8's, TPC-DS SF1 for
+K7's q51 inputs) are built once; each is held against its plain version
+under both checkouts (run_direct_agg_case, run_join_probe_case,
+run_scan_case, run_key_change_case, which also time the plain versions and
+library calls), then timed with CUDA events (chip_smoke.cuda_time_ms,
+chip_smoke.REPEAT calls) in turns: OTHER, this checkout, this checkout,
+OTHER. Where OTHER's ops/scan.py has no window_bounds, its bounds case is
+the four segmented_scan launches and two shifts a window took before.
+--only limits the run to the named kernels (direct_agg, join_probe,
+segmented_scan, key_change_flags). Prints per case the four times and
+writes them, with the card's name and power limit, as JSON to --out.
+Fails where there is no CUDA device.
 """
 
 from __future__ import annotations
@@ -44,13 +51,15 @@ def _load(path: Path, name: str):
 
 
 def other_modules(root: Path):
-    """(aggregate, join) of the checkout at `root`, whose wrappers load
-    their kernels through that checkout's native.py."""
+    """(aggregate, join, scan, keys) of the checkout at `root`, whose
+    wrappers load their kernels through that checkout's native.py."""
     import presto_tpu_torch
     pkg = root / "presto_tpu_torch"
     native = _load(pkg / "native.py", "other_native")
     agg = _load(pkg / "ops" / "aggregate.py", "other_aggregate")
     join = _load(pkg / "ops" / "join.py", "other_join")
+    scan = _load(pkg / "ops" / "scan.py", "other_scan")
+    keys = _load(pkg / "ops" / "keys.py", "other_keys")
 
     @contextlib.contextmanager
     def own_native():
@@ -74,62 +83,105 @@ def other_modules(root: Path):
         WANT_MINMAX=agg.WANT_MINMAX, WANT_SUM128=agg.WANT_SUM128)
     J = types.SimpleNamespace(join_probe=wrap(join.join_probe),
                               _join_probe_plain=join._join_probe_plain)
-    built = native.build(["direct_agg", "join"])
-    return A, J, built
+    S = types.SimpleNamespace(segmented_scan=wrap(scan.segmented_scan))
+    if hasattr(scan, "window_bounds"):
+        S.window_bounds = wrap(scan.window_bounds)
+    K = types.SimpleNamespace(key_change_flags=wrap(keys.key_change_flags))
+    built = native.build(["direct_agg", "join", "seg_scan", "keys"])
+    return A, J, S, K, built
+
+
+KERNELS = ("direct_agg", "join_probe", "segmented_scan", "key_change_flags")
+LIBS = {"direct_agg": "direct_agg", "join_probe": "join",
+        "segmented_scan": "seg_scan", "key_change_flags": "keys"}
+
+
+def _calls(kind, c, m):
+    """A call of case c under module m, for timing."""
+    if kind == "direct_agg":
+        args = (c["cap"], c["num_rows"], c["keys"], c["domains"],
+                c["inputs"], c["mask"])
+        return lambda: m.direct_agg(*args)
+    if kind == "join_probe":
+        args = (c["ph"], c["bh_sorted"], c["order"], c["pvals"], c["bvals"],
+                c["mode"])
+        return lambda: m.join_probe(*args)
+    if kind == "key_change_flags":
+        args = (c["perm"], c["keys"], c["num_rows"], c["npart"], c["mode"])
+        return lambda: m.key_change_flags(*args)
+    if c["op"] == "bounds":
+        part, peer = c["part_start"], c["peer_start"]
+        if hasattr(m, "window_bounds"):
+            return lambda: m.window_bounds(part, peer)
+        return lambda: CS._four_scans(m, part, peer)
+    args = (c["x"], c["op"], c["reverse"], c["seg"])
+    return lambda: m.segmented_scan(*args)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("other", type=Path)
     ap.add_argument("--out", type=Path)
+    ap.add_argument("--only", default=",".join(KERNELS))
     opts = ap.parse_args()
+    only = opts.only.split(",")
+    if not set(only) <= set(KERNELS):
+        ap.error(f"--only takes {','.join(KERNELS)}")
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     from presto_tpu_torch import native
-    from presto_tpu_torch.connectors import TpchConnector
+    from presto_tpu_torch.connectors import TpcdsConnector, TpchConnector
+    from presto_tpu_torch.exec.engine import LocalEngine
     from presto_tpu_torch.ops import aggregate as A
     from presto_tpu_torch.ops import join as J
+    from presto_tpu_torch.ops import keys as K
+    from presto_tpu_torch.ops import scan as S
     card = CS.card_line()
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     built = native.build()
-    oA, oJ, obuilt = other_modules(opts.other.resolve())
+    oA, oJ, oS, oK, obuilt = other_modules(opts.other.resolve())
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     for tag, libs in (("this", built), ("other", obuilt)):
-        for name in ("direct_agg", "join"):
+        for name in (LIBS[k] for k in only):
             for line in libs[name]["report"].splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {tag} {name}: {line.strip()}")
     conn = TpchConnector(CS.SF)
     rng = np.random.default_rng(CS.SEED)
-    da = CS.direct_agg_cases(rng, dev) + [CS.direct_agg_sum128_case(rng,
-                                                                    dev)]
-    jp = CS.join_probe_cases(conn, dev)
+    runs = []
+    if "direct_agg" in only:
+        da = CS.direct_agg_cases(rng, dev) + [
+            CS.direct_agg_sum128_case(rng, dev)]
+        runs.append(("direct_agg", da, CS.run_direct_agg_case, (oA, A)))
+    if "join_probe" in only:
+        runs.append(("join_probe", CS.join_probe_cases(conn, dev),
+                     CS.run_join_probe_case, (oJ, J)))
+    if "segmented_scan" in only:
+        ds_sql, _ = CS.tpcds_queries()
+        q51 = CS.capture_windows(LocalEngine(TpcdsConnector(CS.TPCDS_SF)),
+                                 ds_sql[51])
+        runs.append(("segmented_scan", CS.seg_scan_cases(q51, conn, dev),
+                     CS.run_scan_case, (oS, S)))
+        del q51
+    if "key_change_flags" in only:
+        runs.append(("key_change_flags", CS.key_change_cases(conn, dev),
+                     CS.run_key_change_case, (oK, K)))
     rows = []
-    for kind, cases, run, mods in (
-            ("direct_agg", da, CS.run_direct_agg_case, (oA, A)),
-            ("join_probe", jp, CS.run_join_probe_case, (oJ, J))):
+    for kind, cases, run, mods in runs:
         for c in cases:
             checked = [run(c, CS.REPEAT, m) for m in mods]
-            if kind == "direct_agg":
-                args = (c["cap"], c["num_rows"], c["keys"], c["domains"],
-                        c["inputs"], c["mask"])
-                fns = [lambda m=m: m.direct_agg(*args) for m in mods]
-            else:
-                args = (c["ph"], c["bh_sorted"], c["order"], c["pvals"],
-                        c["bvals"], c["mode"])
-                fns = [lambda m=m: m.join_probe(*args) for m in mods]
-            other, this = fns
+            other, this = [_calls(kind, c, m) for m in mods]
             t = [CS.cuda_time_ms(f, CS.REPEAT)
                  for f in (other, this, this, other)]
             row = {"kernel": kind, "case": c["case"],
-                   "mode": checked[1].get("mode"),
+                   "mode": checked[1].get("mode", checked[1].get("op")),
                    "other_ms": [t[0], t[3]], "this_ms": [t[1], t[2]],
                    "bound_ms": checked[1]["bound_ms"],
                    "plain_ms": checked[1]["plain_ms"],
-                   "library_ms": checked[1]["library_ms"]}
+                   "library_ms": checked[1].get("library_ms")}
             rows.append(row)
             print(json.dumps(row), flush=True)
     if opts.out:

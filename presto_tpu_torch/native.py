@@ -57,7 +57,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "join_expand": [_P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _I32,
                         _I64, _P, _P, _P, _P, _P, _P, _P]},
     "seg_scan": {
-        "segmented_scan": [_P, _I32, _I32, _I32, _P, _I64, _P, _P, _P, _P]},
+        "segmented_scan": [_P, _I32, _I32, _I32, _P, _I64, _P, _P, _P],
+        "window_bounds": [_P, _P, _I64, _P, _P, _P, _P, _P, _P]},
     "keys": {
         "key_change": [_P, _I64, _P, _P, _P, _I32, _P, _P, _P, _I32, _I32,
                        _I32, _P, _P, _P]},
@@ -81,6 +82,7 @@ SCRATCH_SIGNATURES: Dict[str, Dict[str, list]] = {
     "compact": {"compact_scratch_words": [_I64]},
     "segment_reduce": {"segment_reduce_scratch_words": [_I64, _I64]},
     "join": {"join_probe_scratch_words": [_I64]},
+    "seg_scan": {"segmented_scan_scratch_words": [_I64]},
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -16,6 +16,9 @@ The port's twin of presto_tpu/ops/scan.py.
   reversed) scan that launches the hand-written kernel K7
   (csrc/seg_scan.cu) on CUDA tensors and runs its plain PyTorch version on
   CPU tensors.
+- `window_bounds`, a sorted window's partition and peer start and end
+  positions (the four fills of presto_tpu/ops/window.py:197-204) in one
+  launch of K7's bounds kernel.
 """
 
 from __future__ import annotations
@@ -265,8 +268,9 @@ SCAN_OPS = {"add": 0, "min": 1, "max": 2, "last": 3}
 #: value dtypes of segmented_scan, by their code in csrc/seg_scan.cu
 SCAN_DTYPES = {torch.float64: 0, torch.int64: 1, torch.int32: 2}
 
-#: rows handled by one block of the scan kernel (csrc/seg_scan.cu SS_TILE)
-SCAN_TILE = 2048
+#: segmented_scan's launch counts by kind, in this order: add, min/max,
+#: last, and window_bounds (one launch for a window's four "last" scans)
+SCAN_KINDS = ("add", "minmax", "last", "bounds")
 
 
 def _fold(op: str):
@@ -366,26 +370,90 @@ def segmented_scan(x: torch.Tensor, op: str, reverse: bool = False,
     out = torch.empty(n, dtype=out_dtype, device=dev)
     if n == 0:
         return out
-    tiles = (n + SCAN_TILE - 1) // SCAN_TILE
-    carry_v = torch.empty(tiles, dtype=out_dtype, device=dev)
-    carry_f = torch.empty(tiles, dtype=torch.uint8, device=dev)
-    dtype_code = SCAN_DTYPES[out_dtype]
     lib = native.load("seg_scan")
+    scratch = torch.empty(lib.segmented_scan_scratch_words(n),
+                          dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.segmented_scan(
-            ctypes.c_void_p(x.data_ptr()), dtype_code, SCAN_OPS[op],
-            int(reverse), ctypes.c_void_p(seg.data_ptr() if seg is not None
-                                          else 0),
-            n, ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_void_p(carry_v.data_ptr()),
-            ctypes.c_void_p(carry_f.data_ptr()), ctypes.c_void_p(stream))
+            ctypes.c_void_p(x.data_ptr()), SCAN_DTYPES[out_dtype],
+            SCAN_OPS[op], int(reverse),
+            ctypes.c_void_p(seg.data_ptr() if seg is not None else 0), n,
+            ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(scratch.data_ptr()), ctypes.c_void_p(stream))
     native.check(rc, "segmented_scan", "seg_scan")
     segmented_scan.launches += 1
+    kind = "last" if op == "last" else "add" if op == "add" else "minmax"
+    segmented_scan.mode_launches[SCAN_KINDS.index(kind)] += 1
     return out
 
 
 segmented_scan.launches = 0
+#: launches by SCAN_KINDS (window_bounds' counted too)
+segmented_scan.mode_launches = [0, 0, 0, 0]
+
+
+def shift_left(flags: torch.Tensor) -> torch.Tensor:
+    """end[i] = start[i + 1], the last row always an end."""
+    end = torch.empty_like(flags)
+    end[:-1] = flags[1:]
+    end[-1:] = True
+    return end
+
+
+def _window_bounds_plain(part_start: torch.Tensor, peer_start: torch.Tensor):
+    """Plain PyTorch version of window_bounds: four "last" scans."""
+    return (_segmented_scan_plain(part_start, "last", False, None),
+            _segmented_scan_plain(shift_left(part_start), "last", True, None),
+            _segmented_scan_plain(peer_start, "last", False, None),
+            _segmented_scan_plain(shift_left(peer_start), "last", True, None))
+
+
+def window_bounds(part_start: torch.Tensor, peer_start: torch.Tensor):
+    """A sorted window's row positions from its partition and peer start
+    flags (bool, one a sorted row): (ps, pe, qs, qe), int64, the last
+    partition start at or before each row, the first partition end at or
+    after it (a row ends its partition where the next row starts one; the
+    last row always does), and the same for peer groups; -1 where there is
+    none. These are the four fills of presto_tpu/ops/window.py:197-204 (the
+    JAX package's fill gives 0 where the port gives -1; a window's first
+    row always starts a partition, so neither shows).
+
+    One launch of K7's bounds kernel (csrc/seg_scan.cu window_bounds) on
+    CUDA tensors, counted as a segmented_scan launch of kind "bounds"; on
+    CPU tensors the plain version, four segmented_scan scans."""
+    if part_start.dtype != torch.bool or peer_start.dtype != torch.bool \
+            or part_start.dim() != 1 or peer_start.shape != part_start.shape:
+        raise TypeError("window_bounds: flags must be 1-d bool of one "
+                        "length")
+    dev = part_start.device
+    if peer_start.device != dev:
+        raise ValueError("window_bounds: tensors on different devices")
+    if dev.type == "cpu":
+        return _window_bounds_plain(part_start, peer_start)
+    if dev.type != "cuda":
+        raise RuntimeError(f"window_bounds: no kernel for {dev}")
+    from presto_tpu_torch import native
+    part_start = part_start.contiguous()
+    peer_start = peer_start.contiguous()
+    n = part_start.shape[0]
+    outs = [torch.empty(n, dtype=torch.int64, device=dev) for _ in range(4)]
+    if n == 0:
+        return tuple(outs)
+    lib = native.load("seg_scan")
+    scratch = torch.empty(lib.segmented_scan_scratch_words(n),
+                          dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.window_bounds(
+            ctypes.c_void_p(part_start.data_ptr()),
+            ctypes.c_void_p(peer_start.data_ptr()), n,
+            *[ctypes.c_void_p(t.data_ptr()) for t in outs],
+            ctypes.c_void_p(scratch.data_ptr()), ctypes.c_void_p(stream))
+    native.check(rc, "window_bounds", "seg_scan")
+    segmented_scan.launches += 1
+    segmented_scan.mode_launches[SCAN_KINDS.index("bounds")] += 1
+    return tuple(outs)
 
 
 def cumsum(x: torch.Tensor) -> torch.Tensor:

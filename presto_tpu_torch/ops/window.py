@@ -9,8 +9,8 @@ The port's twin of presto_tpu/ops/window.py (`window_page` :126,
 2. partition and peer start flags in one pass over the keys taken in that
    order (`key_change_flags`, kernel K8, csrc/keys.cu);
 3. each sorted row's partition and peer start and end positions, as
-   last-present-position scans forward and backward (`segmented_scan`,
-   kernel K7, csrc/seg_scan.cu);
+   last-present-position scans forward and backward, all four in one
+   launch (`window_bounds`, kernel K7, csrc/seg_scan.cu);
 4. per window function the prefix arrays it needs (K7): live counts and
    sums, restarting at each partition start (the JAX package takes
    differences of one global running sum, :279-299; a segmented sum gives
@@ -46,7 +46,8 @@ import torch
 from presto_tpu_torch.data.column import Column, Page, torch_dtype
 from presto_tpu_torch.ops.keys import LANE_DTYPES, WINDOW_FLAGS, SortKey, \
     _orderable_lanes, descending, group_values, key_change_flags, lex_perm
-from presto_tpu_torch.ops.scan import segmented_scan
+from presto_tpu_torch.ops.scan import segmented_scan, shift_left, \
+    window_bounds
 from presto_tpu_torch.types import Type
 
 
@@ -324,14 +325,6 @@ def _dtype_code(t: Optional[torch.Tensor]) -> int:
     return -1 if t is None else LANE_DTYPES[t.dtype]
 
 
-def _shift_left(flags: torch.Tensor) -> torch.Tensor:
-    """end[i] = start[i + 1], the last row always an end."""
-    end = torch.empty_like(flags)
-    end[:-1] = flags[1:]
-    end[-1:] = True
-    return end
-
-
 @dataclasses.dataclass
 class SortedWindow:
     """A page's rows in window order: the permutation, the keys compared
@@ -374,15 +367,11 @@ def sort_window(page: Page, partition_fields: Sequence[int],
     perm = lex_perm(lanes)
     part_start, peer_start = key_change_flags(
         perm, keys, page.num_rows, len(partition_fields), WINDOW_FLAGS)
-    part_end = _shift_left(part_start)
+    ps, pe, qs, qe = window_bounds(part_start, peer_start)
     idx = torch.arange(page.capacity, dtype=torch.int64, device=page.device)
     return SortedWindow(
         perm=perm, keys=keys, part_start=part_start, peer_start=peer_start,
-        part_end=part_end,
-        ps=segmented_scan(part_start, "last"),
-        pe=segmented_scan(part_end, "last", reverse=True),
-        qs=segmented_scan(peer_start, "last"),
-        qe=segmented_scan(_shift_left(peer_start), "last", reverse=True),
+        part_end=shift_left(part_start), ps=ps, pe=pe, qs=qs, qe=qe,
         s_valid=idx < page.num_rows, has_order=bool(order_keys))
 
 

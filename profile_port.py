@@ -5,15 +5,16 @@
 
 Runs chip_smoke.py's main-path queries (`main_queries()`: TPC-H q01, q06, the
 q18 aggregation block, q03, q04, q13, q18, q21 and q22 at SF1), the
-breadth path's TPC-DS q51, q67 and q75 at SF1 and TPC-H running-window
-query at SF1 (`breadth_queries()`; that one returns 1.5M rows and is
-timed to its result page on the card, without the conversion to Python
-rows) and the decimal path's TPC-H q01, q03, q06, q10 and q19 over SF1
-lineitem with DECIMAL(12,2) money columns (`decimal_queries()`, named
-dec_q01 ..), the nested path's UNNEST queries n1-n4 over the SF1
-orders_nested table (`nested_queries()`) and the approx path's a1-a5
-over TPC-H SF1 (`APPROX_QUERIES`) through presto_tpu_torch's
-LocalEngine on the card (--only limits the run to the named queries):
+breadth path's TPC-DS q47, q51, q67 and q75 at SF1 and TPC-H
+running-window and rank queries at SF1 (`breadth_queries()`; a query
+that returns 1.5M rows is timed to its result page on the card, without
+the conversion to Python rows) and the decimal path's TPC-H q01, q03,
+q06, q10 and q19 over SF1 lineitem with DECIMAL(12,2) money columns
+(`decimal_queries()`, named dec_q01 ..), the nested path's UNNEST
+queries n1-n4 over the SF1 orders_nested table (`nested_queries()`) and
+the approx path's a1-a5 over TPC-H SF1 (`APPROX_QUERIES`) through
+presto_tpu_torch's LocalEngine on the card (--only limits the run to the
+named queries):
 once cold (column uploads, capacity retries), WARM times warm and timed,
 once warm under torch.profiler. Prints per query the median warm wall time,
 the device busy time (the union of kernel and copy intervals in the
@@ -42,7 +43,7 @@ from chip_smoke import APPROX_QUERIES, SF, TPCDS_SF, breadth_queries, \
 
 TOP = 8        # heaviest device kernels listed per query
 WARM = 7       # timed warm runs per query (median reported)
-BREADTH = ("ds51", "ds67", "ds75", "h_running_sum")
+BREADTH = ("ds47", "ds51", "ds67", "ds75", "h_running_sum", "h_rank")
 
 
 def _busy_us(intervals) -> float:

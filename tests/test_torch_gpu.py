@@ -477,15 +477,14 @@ def test_subnormal_keys_hash_and_probe_as_zero(cuda):
     assert hit.tolist() == [0, 0, 0, 0]
 
 
-@pytest.mark.parametrize("n", [1, 2049, 1_000_003])
-@pytest.mark.parametrize("op,dtype", [
-    ("add", torch.float64), ("add", torch.int64), ("add", torch.int32),
-    ("min", torch.float64), ("max", torch.float64), ("min", torch.int64),
-    ("max", torch.int32), ("last", torch.bool)])
-@pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("segmented", [False, True])
-def test_segmented_scan_kernel_matches_plain(cuda, n, op, dtype, reverse,
-                                             segmented):
+#: K7's sizes: one row, either side of a thread's 16 rows and of a
+#: block's tile of 4096 rows, 513 tiles (more than one wave of blocks on an
+#: H100), and one past 2^24
+SCAN_SIZES = [1, 17, 2049, 4095, 4096, 4097, 1_000_003, 512 * 4096 + 1,
+              2 ** 24 + 1]
+
+
+def _scan_input(n, op, dtype, segmented):
     rng = np.random.default_rng(n + 7)
     if dtype == torch.bool:
         x = torch.from_numpy(rng.random(n) < 0.01)
@@ -502,10 +501,24 @@ def test_segmented_scan_kernel_matches_plain(cuda, n, op, dtype, reverse,
         f = rng.random(n) < 0.02
         f[::2048] = True
         seg = torch.from_numpy(f)
-    plain = S.segmented_scan(x, op, reverse, seg)
+    return x, seg
+
+
+@pytest.mark.parametrize("n", SCAN_SIZES)
+@pytest.mark.parametrize("op,dtype", [
+    ("add", torch.float64), ("add", torch.int64), ("add", torch.int32),
+    ("min", torch.float64), ("max", torch.float64), ("min", torch.int64),
+    ("max", torch.int32), ("last", torch.bool)])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("segmented", [False, True])
+def test_segmented_scan_kernel_matches_plain(cuda, n, op, dtype, reverse,
+                                             segmented):
+    x, seg = _scan_input(n, op, dtype, segmented)
+    x = x.to(cuda)
+    seg = seg.to(cuda) if seg is not None else None
+    plain = S._segmented_scan_plain(x, op, reverse, seg)
     before = S.segmented_scan.launches
-    got = S.segmented_scan(x.to(cuda), op, reverse,
-                           seg.to(cuda) if seg is not None else None)
+    got = S.segmented_scan(x, op, reverse, seg)
     assert S.segmented_scan.launches == before + 1
     if op == "add" and dtype == torch.float64:
         _close(got, plain)
@@ -513,24 +526,106 @@ def test_segmented_scan_kernel_matches_plain(cuda, n, op, dtype, reverse,
         _same(got, plain)
 
 
-@pytest.mark.parametrize("mode", [K.WINDOW_FLAGS, K.FIRST_FLAGS])
-def test_key_change_kernel_matches_plain(cuda, mode):
-    rng = np.random.default_rng(53)
-    n = 300_001
-    cols = _key_columns(rng, n)
+@pytest.mark.parametrize("n", [4097, 1_000_003, 2 ** 24 + 1])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("segmented", [False, True])
+def test_segmented_scan_float_sums_repeat_bit_for_bit(cuda, n, reverse,
+                                                      segmented):
+    x, seg = _scan_input(n, "add", torch.float64, segmented)
+    x = x.to(cuda)
+    seg = seg.to(cuda) if seg is not None else None
+    a = S.segmented_scan(x, "add", reverse, seg)
+    b = S.segmented_scan(x, "add", reverse, seg)
+    assert torch.equal(a.view(torch.int64), b.view(torch.int64))
+
+
+@pytest.mark.parametrize("n,flags", [
+    (1, "none"), (1, "all"), (4097, "none"), (4097, "all"),
+    (512 * 4096 + 1, "random"), (2_097_152, "padding"),
+    (2 ** 24 + 1, "random")])
+def test_window_bounds_kernel_matches_plain(cuda, n, flags):
+    rng = np.random.default_rng(n + 11)
+    if flags == "none":
+        part = peer = np.zeros(n, bool)
+    elif flags == "all":
+        part = peer = np.ones(n, bool)
+    else:
+        part = rng.random(n) < 0.02
+        peer = part | (rng.random(n) < 0.2)
+        part[0] = peer[0] = True
+        if flags == "padding":
+            # a page of 1.5M valid rows: padding starts a partition and
+            # holds no other start
+            num_rows = 1_500_000
+            part[num_rows] = peer[num_rows] = True
+            part[num_rows + 1:] = peer[num_rows + 1:] = False
+    part = torch.from_numpy(part).to(cuda)
+    peer = torch.from_numpy(peer).to(cuda)
+    plain = S._window_bounds_plain(part, peer)
+    before = list(S.segmented_scan.mode_launches)
+    got = S.window_bounds(part, peer)
+    assert S.segmented_scan.mode_launches[3] == before[3] + 1
+    assert S.segmented_scan.mode_launches[:3] == before[:3]
+    for g, w in zip(got, plain):
+        _same(g, w)
+
+
+def _change_keys(rng, n, layout):
+    """(keys, n_part_keys) over seeded columns: "mixed" is a null lane and
+    value per key plus a three-lane key without nulls; "one" a single
+    int64 lane; "wide" 32 lanes; "no nulls" two keys whose null lanes and
+    a bool value lane hold no true value (lanes the kernel skips); a
+    dtype name one key of that dtype."""
+    m = max(n, 16)
+    cols = _key_columns(rng, m)
     cols[4].values[7:11] = torch.tensor([1e-310, 0.0, -1e-310, -0.0],
                                         dtype=torch.float64)
-    cap = cols[0].capacity
-    perm = torch.from_numpy(rng.permutation(cap))
-    keys = [(c.nulls, [c.values]) for c in cols[:3]] + \
-        [(None, [cols[4].values, cols[3].values, cols[5].values])]
-    num_rows = torch.tensor(n - 1000)
-    plain = K.key_change_flags(perm, keys, num_rows, 2, mode)
+    if layout == "mixed":
+        keys = [(c.nulls, [c.values]) for c in cols[:3]] + \
+            [(None, [cols[4].values, cols[3].values, cols[5].values])]
+        npart = 2
+    elif layout == "one":
+        keys, npart = [(None, [torch.from_numpy(rng.integers(0, 3, m))])], 0
+    elif layout == "wide":
+        lanes = [torch.from_numpy(rng.integers(0, 2, m)) for _ in range(32)]
+        keys, npart = [(None, lanes[:12]), (None, lanes[12:])], 1
+    elif layout == "no nulls":
+        none = torch.zeros(m, dtype=torch.bool)
+        keys = [(none, [cols[3].values]), (none, [cols[1].values]),
+                (None, [none])]
+        npart = 1
+    else:
+        c = {"float64": cols[4], "float32": cols[5], "int64": cols[0],
+             "int32": cols[3], "bool": cols[2]}[layout]
+        keys, npart = [(c.nulls, [c.values])], 0
+    return [(nl[:n] if nl is not None else None, [v[:n] for v in vs])
+            for nl, vs in keys], npart
+
+
+@pytest.mark.parametrize("mode", [K.WINDOW_FLAGS, K.FIRST_FLAGS])
+@pytest.mark.parametrize("n,layout,order", [
+    (300_001, "mixed", "random"), (1, "mixed", "random"),
+    (300_001, "mixed", "identity"), (300_001, "one", "random"),
+    (100_003, "wide", "random"), (300_001, "no nulls", "random"),
+    (300_001, "no nulls", "sorted"), (300_001, "float64", "random"),
+    (300_001, "float32", "random"), (300_001, "int64", "random"),
+    (300_001, "int32", "sorted"), (300_001, "bool", "random")])
+def test_key_change_kernel_matches_plain(cuda, mode, n, layout, order):
+    rng = np.random.default_rng(53)
+    keys, npart = _change_keys(rng, n, layout)
+    if order == "identity":
+        perm = torch.arange(n)
+    elif order == "sorted":
+        perm = K.lex_perm([v for _nl, vs in keys for v in vs])
+    else:
+        perm = torch.from_numpy(rng.permutation(n))
+    num_rows = torch.tensor(max(n - 1000, n // 2))
+    plain = K.key_change_flags(perm, keys, num_rows, npart, mode)
     before = K.key_change_flags.launches
     got = K.key_change_flags(perm.to(cuda),
                              [(nl.to(cuda) if nl is not None else None,
                                [v.to(cuda) for v in vs])
-                              for nl, vs in keys], num_rows.to(cuda), 2,
+                              for nl, vs in keys], num_rows.to(cuda), npart,
                              mode)
     assert K.key_change_flags.launches == before + 1
     _same(got[0], plain[0])

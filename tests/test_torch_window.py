@@ -8,7 +8,8 @@ PyTorch versions on CPU tensors), and compares:
 - ops/scan.py cumsum, blocked_cummax, fill_forward, seg_scan and
   fill_backward (kernel K7) at lengths around the JAX `_LANE` of 2048,
   with NaN, +-inf, int32 and int64 extremes and segment starts on block
-  edges;
+  edges, and window_bounds (K7's bounds kernel) against the JAX window's
+  four fills;
 - ops/keys.key_change_flags (kernel K8) against the JAX window's
   `changed` logic (presto_tpu/ops/window.py:171-195) and mark_distinct's
   first flags, with nulls first and last, NaN keys and a padding tail;
@@ -200,6 +201,30 @@ def test_segmented_add_restarts_at_segment_starts(n):
         acc = v[i] if (seg[i] or i == 0) else acc + v[i]
         want[i] = acc
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", LENGTHS)
+def test_window_bounds_match_jax_fills(n):
+    """window_bounds (the plain version of K7's bounds kernel) against the
+    JAX window's four fills as presto_tpu/ops/window.py:197-204 composes
+    them: the start positions by fill_forward, the end positions (a row
+    ends where the next starts, the last row always) by fill_backward.
+    Row 0 starts a partition, as every window's does."""
+    rng = np.random.default_rng(n + 5)
+    part = _seg_starts(rng, n)
+    peer = part | (rng.random(n) < 0.2)
+    idx = jnp.arange(n)
+
+    def jax_bounds(start):
+        start = jnp.asarray(start)
+        end = jnp.roll(start, -1).at[-1].set(True)
+        return (RS.fill_forward(jnp.where(start, idx, 0), start),
+                RW._fill_backward(jnp.where(end, idx, 0), end))
+
+    got = PS.window_bounds(torch.from_numpy(part), torch.from_numpy(peer))
+    (ps, pe), (qs, qe) = jax_bounds(part), jax_bounds(peer)
+    for g, w, what in zip(got, (ps, pe, qs, qe), ("ps", "pe", "qs", "qe")):
+        _exact(g.numpy(), w, what)
 
 
 # ---------------------------------------------------------------------------
