@@ -18,8 +18,9 @@ Phases, each fatal on failure, each printing its seconds:
      runs on the card, each on a line of its own, K3's float sums of two
      launches held bit for bit; K11 unnest_expand on the
      nested orders' l_partkeys and l_returned with the ordinality, at the
-     capacity the executor gives that unnest, and on 9 and 12 seeded
-     channels, K12 hll_registers in direct mode on a2's and a1's columns
+     capacity the executor gives that unnest and at one below the total,
+     on 9 and 12 seeded channels and on a skewed page (one row of 2^20
+     elements among rows mostly empty or NULL), K12 hll_registers in direct mode on a2's and a1's columns
      (their first values replaced by values whose hash has w = 2^k - 1)
      and in sorted mode on 1.5M one-row groups, a3's 10,000 groups and
      a4's seven groups of 0.86M rows, K13 segment_pick on a1's global
@@ -27,7 +28,9 @@ Phases, each fatal on failure, each printing its seconds:
      path
      (K1-K3 on seeded numpy data; K4-K6 on q13's join of customer with
      orders; K7 on TPC-DS q51's largest window input and on orders
-     partitioned by o_custkey; K8 and K9 on that orders page; K10 and the
+     partitioned by o_custkey; K8 and K9 on that orders page, K9's rank,
+     running sum and min over 3 rows each side also with the identity
+     permutation, and its min over 1,000 rows each side; K10 and the
      128-bit modes on seeded values over the full +-(10^38-1) range with
      rows of 2 x 9.9e37, at q01's and the q18 block's shapes), held
      against its plain PyTorch version on the card (counts, indices,
@@ -1364,89 +1367,143 @@ def nested_counts(table) -> list:
     return [(int(np.maximum(a, b).sum()), int(a.sum()), int(b.sum()))]
 
 
-def kernel_unnest_expand(table, dev, repeat):
-    """K11 at phase 4d's shape: orders_nested's l_partkeys and l_returned
-    (1.5M rows; l_returned empty where an order has no returned line and
-    NULL where o_orderkey % 97 = 0) with the ordinality, at the capacity
-    the executor gives that unnest (the bucket of 4x the page's)."""
+def _seeded_channels(rng, cap, nch, dev, hi=10, p_null=0.1):
+    """K11 inputs: per channel int32 lengths in [0, hi), their exclusive
+    prefix as starts, and NULL flags with probability p_null."""
+    import torch
+    st, ln, nl = [], [], []
+    for _ in range(nch):
+        lengths = rng.integers(0, hi, cap).astype(np.int32)
+        st.append(torch.from_numpy(np.concatenate(
+            [[0], np.cumsum(lengths)[:-1]]).astype(np.int32)).to(dev))
+        ln.append(torch.from_numpy(lengths).to(dev))
+        nl.append(torch.from_numpy(rng.random(cap) < p_null).to(dev))
+    return st, ln, nl
+
+
+def unnest_expand_cases(table, dev) -> list:
+    """Phase 3's K11 shapes: phase 4d's (orders_nested's l_partkeys and
+    l_returned, 1.5M rows in a 2,097,152-row page; l_returned empty where
+    an order has no returned line and NULL where o_orderkey % 97 = 0, with
+    the ordinality, at the capacity the executor gives that unnest, the
+    bucket of 4x the page's); the same at a capacity below the total
+    (4,194,304 slots: the executor's overflow); 9 and 12 seeded channels
+    (lengths 0-9, about 10% NULL rows) over 1.5M of 2,097,152 rows at
+    phase 4d's capacity; and a skewed page: two channels over 1.5M rows,
+    about 60% NULL, 35% empty and 5% of 1-3 elements, and one row of
+    2^20 elements."""
     import torch
     from presto_tpu_torch.data.column import bucket_capacity
-    from presto_tpu_torch.ops import unnest as U
     page = table.page(columns=["l_partkeys", "l_returned"], device=dev)
     pk, ret = page.columns
     out_cap = bucket_capacity(min(page.capacity * 4, 2**26))
-    args = ([pk.starts, ret.starts], [pk.lengths, ret.lengths],
-            [pk.nulls, ret.nulls], page.num_rows, out_cap, True)
+    lanes = ([pk.starts, ret.starts], [pk.lengths, ret.lengths],
+             [pk.nulls, ret.nulls], page.num_rows)
+    cases = [{"case": "phase 4d", "args": (*lanes, out_cap, True),
+              "live": int(page.num_rows), "library": True},
+             {"case": "phase 4d, capacity below the total",
+              "args": (*lanes, 4_194_304, True),
+              "live": int(page.num_rows), "library": False}]
+    rng = np.random.default_rng(SEED + 11)
+    cap, n = 2_097_152, 1_500_000
+    num_rows = torch.tensor(n, dtype=torch.int64, device=dev)
+    for nch in (9, 12):
+        cases.append({"case": f"{nch} channels",
+                      "args": (*_seeded_channels(rng, cap, nch, dev),
+                               num_rows, out_cap, True),
+                      "live": n, "library": False})
+    st, ln, nl = [], [], []
+    for c in range(2):
+        u = rng.random(cap)
+        lengths = np.where(u < 0.95, 0, rng.integers(1, 4, cap))
+        if c == 0:
+            lengths[n // 3] = 2**20
+        nulls = (u < 0.6) & (lengths < 2**20)
+        st.append(torch.from_numpy(np.concatenate(
+            [[0], np.cumsum(lengths)[:-1]]).astype(np.int32)).to(dev))
+        ln.append(torch.from_numpy(lengths.astype(np.int32)).to(dev))
+        nl.append(torch.from_numpy(nulls).to(dev))
+    cases.append({"case": "skewed: one row of 2^20 elements",
+                  "args": (st, ln, nl, num_rows, 2**21, True), "live": n,
+                  "library": False})
+    return cases
+
+
+def run_unnest_case(c, repeat, U=None) -> dict:
+    """One K11 case (unnest_expand_cases) held exactly against its plain
+    version, timed beside it, its bound and its stores alone (torch zeroing
+    every output lane); phase 4d's also beside torch.repeat_interleave
+    writing the parent lane alone. U: the module whose wrapper runs
+    (default: this checkout's ops/unnest)."""
+    import torch
+    from presto_tpu_torch.ops import unnest as mine
+    if U is None:
+        U = mine
+    args = c["args"]
 
     def kernel():
         return U.unnest_expand(*args)
 
     def plain():
-        return U._unnest_expand_plain(*args)
+        return mine._unnest_expand_plain(*args)
 
     got, want = kernel(), plain()
     for g, w in zip(got, want):
-        if not exact(g, w):
-            fail("unnest_expand differs from the plain version")
-    total = int(got[-1])
-    if total != nested_counts(table)[0][0]:
-        fail(f"unnest_expand's total {total} differs from numpy's")
-    print(f"unnest_expand at phase 4d's shape: {total} slots of "
-          f"{page.capacity} rows in a capacity of {out_cap}", flush=True)
-    rowlen = torch.maximum(torch.where(pk.nulls, 0, pk.lengths),
-                           torch.where(ret.nulls, 0, ret.lengths)).long()
-    rows = torch.arange(page.capacity, device=dev)
-
-    def library():
-        # the parent of each slot, the one lane a library call gives
-        torch.repeat_interleave(rows, rowlen, output_size=total)
-
+        if (g is None) != (w is None) or (w is not None and not exact(g, w)):
+            fail(f"unnest_expand ({c['case']}) differs from the plain "
+                 f"version")
+    starts, lengths, nulls, _n, out_cap, ordinality = args
+    nch, total = len(lengths), int(got[-1])
     # per live row and channel its start, length (4 B each) and null
     # flag read (rows past num_rows are never read); per slot its parent
     # (8 B), its flag, per channel an element index (8 B) and a flag, and
     # the ordinality (8 B) written
-    nbytes = int(page.num_rows) * 2 * 9 + out_cap * (8 + 1 + 2 * 9 + 8)
+    nbytes = c["live"] * nch * 9 + out_cap * (8 + 1 + 9 * nch
+                                              + (8 if ordinality else 0))
+    outs = [t for t in got[:5] if t is not None]
+
+    def fill():
+        # the kernel's stores alone: every output lane zeroed by torch
+        for t in outs:
+            t.zero_()
+
+    library_ms = None
+    if c["library"]:
+        rowlen = lengths[0].new_zeros(lengths[0].shape, dtype=torch.int64)
+        for ln, nl in zip(lengths, nulls):
+            rowlen = torch.maximum(rowlen, torch.where(nl, 0, ln).long())
+        rows = torch.arange(rowlen.shape[0], device=rowlen.device)
+        # the parent of each slot, the one lane a library call gives
+        library_ms = cuda_time_ms(lambda: torch.repeat_interleave(
+            rows, rowlen, output_size=total), repeat)
+    return {"case": c["case"], "channels": nch, "slots": total,
+            "out_cap": out_cap, "max_abs_err": 0.0,
+            "ms": cuda_time_ms(kernel, repeat),
+            "plain_ms": cuda_time_ms(plain, max(repeat // 4, 2)),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "library_ms": library_ms, "fill_ms": cuda_time_ms(fill, repeat)}
+
+
+def kernel_unnest_expand(table, dev, repeat):
+    """K11 at phase 4d's shape and the other unnest_expand_cases, each
+    printed; the kernel line is phase 4d, whose total is held against
+    numpy's."""
+    cases = [run_unnest_case(c, repeat)
+             for c in unnest_expand_cases(table, dev)]
+    print("unnest_expand cases: " + json.dumps(cases), flush=True)
+    line = cases[0]
+    if line["slots"] != nested_counts(table)[0][0]:
+        fail(f"unnest_expand's total {line['slots']} differs from numpy's")
+    print(f"unnest_expand at phase 4d's shape: {line['slots']} slots in a "
+          f"capacity of {line['out_cap']}: {line['ms']:.5f} ms, "
+          f"torch.repeat_interleave of the parent lane "
+          f"{line['library_ms']:.5f} ms", flush=True)
     return {"name": "unnest_expand", "route": "cuda",
             "source": "presto_tpu_torch/csrc/unnest.cu",
             "replaces": "presto_tpu/ops/unnest.py:27",
-            "max_abs_err": 0.0,
-            "ms": cuda_time_ms(kernel, repeat),
-            "plain_ms": cuda_time_ms(plain, repeat),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes",
-            "library_ms": cuda_time_ms(library, repeat)}
-
-
-def kernel_unnest_channels(dev, repeat) -> None:
-    """K11 beyond one launch's eight channels: 9 and 12 seeded channels
-    (lengths 0-9, about 10% NULL rows) over a 2,097,152-row page of
-    1,500,000 rows at phase 4d's capacity, exact against the plain
-    version; times printed on a line of their own."""
-    import torch
-    from presto_tpu_torch.ops import unnest as U
-    rng = np.random.default_rng(SEED + 11)
-    cap, n, out_cap = 2_097_152, 1_500_000, 8_388_608
-    for nch in (9, 12):
-        st, ln, nl = [], [], []
-        for _ in range(nch):
-            lengths = rng.integers(0, 10, cap).astype(np.int32)
-            st.append(torch.from_numpy(np.concatenate(
-                [[0], np.cumsum(lengths)[:-1]]).astype(np.int32)).to(dev))
-            ln.append(torch.from_numpy(lengths).to(dev))
-            nl.append(torch.from_numpy(rng.random(cap) < 0.1).to(dev))
-        args = (st, ln, nl, torch.tensor(n, device=dev), out_cap, True)
-        got, want = U.unnest_expand(*args), U._unnest_expand_plain(*args)
-        for g, w in zip(got, want):
-            if not exact(g, w):
-                fail(f"unnest_expand with {nch} channels differs from the "
-                     f"plain version")
-        ms = cuda_time_ms(lambda: U.unnest_expand(*args), repeat)
-        plain_ms = cuda_time_ms(lambda: U._unnest_expand_plain(*args),
-                                max(repeat // 4, 2))
-        print(f"unnest_expand with {nch} channels ({int(got[-1])} slots in "
-              f"{out_cap}): equal to the plain version; {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms", flush=True)
-        del got, want, st, ln, nl
+            "max_abs_err": 0.0, "ms": line["ms"],
+            "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
+            "bound_by": "bytes", "library_ms": line["library_ms"]}
 
 
 def _hll_bytes(flags: int, live: int, bins: int = 0, groups: int = 0):
@@ -1882,52 +1939,102 @@ def kernel_key_change(conn, dev, repeat):
             "library_ms": None}
 
 
-def kernel_window_frame(conn, dev, repeat):
-    """K9 at the running-sum query's SF1 shape, over orders partitioned by
-    o_custkey and ordered by o_orderdate: rank, the running sum of
-    o_totalprice (the SQL default frame, peer-aware) and the min of
-    o_totalprice over ROWS 3 PRECEDING .. 3 FOLLOWING. The kernel line is
-    the running sum."""
+def window_frame_cases(conn, dev) -> list:
+    """Phase 3's K9 shapes, over orders at SF1 (2,097,152-row page, 1.5M
+    rows) partitioned by o_custkey and ordered by o_orderdate, as the
+    running-sum query of the breadth path sorts it: rank, the running sum
+    of o_totalprice (the SQL default frame, peer-aware), the min of
+    o_totalprice over ROWS 3 PRECEDING .. 3 FOLLOWING (folded in shared
+    memory) and over ROWS 1000 PRECEDING .. 1000 FOLLOWING (a sparse
+    table); the first three again with the identity permutation (each
+    row's value stored at its own position, coalesced), which shows what
+    the scattered stores cost. Each case: its window_frame arguments and
+    the int64 inputs the function reads besides perm."""
+    import dataclasses
+    import torch
     from presto_tpu_torch.ops import window as W
     from presto_tpu_torch.types import BIGINT, DOUBLE
     page, sw = _orders_window(conn, dev)
-    cap = page.capacity
+    ident = dataclasses.replace(sw, perm=torch.arange(
+        sw.perm.shape[0], dtype=torch.int64, device=dev))
     specs = [
-        # (spec, int64 inputs the function reads besides perm)
         ("rank", W.WindowSpec("rank", None, BIGINT), 2),
         ("running sum", W.WindowSpec("sum", 2, DOUBLE), 4),
         ("min, 3 preceding .. 3 following",
          W.WindowSpec("min", 2, DOUBLE, frame=W.Frame(
              "rows", "preceding", 3, "following", 3)), 4),
     ]
+    wide = ("min, 1000 preceding .. 1000 following",
+            W.WindowSpec("min", 2, DOUBLE, frame=W.Frame(
+                "rows", "preceding", 1000, "following", 1000)), 4)
     cases = []
-    for what, spec, reads in specs:
-        fi = W.frame_inputs(page, sw, spec)
+    for tag, s_w, chosen in (("", sw, specs + [wide]),
+                             (", identity permutation", ident, specs)):
+        for what, spec, reads in chosen:
+            fi = W.frame_inputs(page, s_w, spec)
+            cases.append({
+                "case": what + tag, "kind": spec.kind, "reads": reads,
+                "args": (spec.kind, fi.frame, fi.iparams, fi.dparams,
+                         s_w.perm, page.num_rows, s_w.ps, s_w.pe, s_w.qs,
+                         s_w.qe, fi.vals, fi.nulls, fi.aux_i, fi.aux_v,
+                         fi.out_dtype)})
+    return cases
 
-        def kernel(spec=spec, fi=fi):
-            return W.run_frame(page, sw, spec, fi)
 
-        def plain(spec=spec, fi=fi):
-            return W._window_frame_plain(
-                spec.kind, fi.frame, fi.iparams, fi.dparams, sw.perm,
-                page.num_rows, sw.ps, sw.pe, sw.qs, sw.qe, fi.vals,
-                fi.nulls, fi.aux_i, fi.aux_v, fi.out_dtype)
+def run_window_frame_case(c, repeat, W=None) -> dict:
+    """One K9 case (window_frame_cases) held against its plain version
+    (exact; float64 sums within RTOL_SUM) and between two launches (bit
+    for bit), timed beside it, its bound and its two scattered stores
+    alone (torch's index_copy_ of the value and the null flag through
+    perm). W: the module whose wrapper runs (default: this checkout's
+    ops/window)."""
+    import torch
+    from presto_tpu_torch.ops import window as mine
+    if W is None:
+        W = mine
+    args = c["args"]
 
-        (gv, gn), (pv, pn) = kernel(), plain()
-        if not exact(gn, pn):
-            fail(f"window_frame ({what}) nulls differ from the plain version")
-        err = 0.0
-        if spec.kind == "sum":
-            err = close(gv, pv, RTOL_SUM)
-        elif not exact(gv, pv):
-            fail(f"window_frame ({what}) differs from the plain version")
-        # perm and `reads` int64 position or prefix arrays read (8 B
-        # each), the value (8 B) and null flag written
-        nbytes = cap * (8 + 8 * reads + 9)
-        cases.append({"case": what, "rows": cap, "max_abs_err": err,
-                      "ms": cuda_time_ms(kernel, repeat),
-                      "plain_ms": cuda_time_ms(plain, max(repeat // 4, 2)),
-                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+    def kernel():
+        return W.window_frame(*args)
+
+    def plain():
+        return mine._window_frame_plain(*args)
+
+    (gv, gn), (av, an), (pv, pn) = kernel(), kernel(), plain()
+    what = f"window_frame ({c['case']})"
+    if not exact(gn, pn):
+        fail(f"{what}: nulls differ from the plain version")
+    if not (exact(gn, an) and torch.equal(_bits(gv), _bits(av))):
+        fail(f"{what}: two launches differ")
+    err = 0.0
+    if c["kind"] == "sum":
+        err = close(gv, pv, RTOL_SUM)
+    elif not exact(gv, pv):
+        fail(f"{what} differs from the plain version")
+    perm = args[4]
+    cap = perm.shape[0]
+
+    def scatter():
+        # the kernel's two stores a row alone, as torch's scatter
+        out_v.index_copy_(0, perm, gv)
+        out_n.index_copy_(0, perm, gn)
+
+    out_v, out_n = torch.empty_like(gv), torch.empty_like(gn)
+    # perm and `reads` int64 position or prefix arrays read (8 B each),
+    # the value (8 B) and null flag written
+    nbytes = cap * (8 + 8 * c["reads"] + 9)
+    return {"case": c["case"], "rows": cap, "max_abs_err": err,
+            "ms": cuda_time_ms(kernel, repeat),
+            "plain_ms": cuda_time_ms(plain, max(repeat // 4, 2)),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "scatter_ms": cuda_time_ms(scatter, repeat)}
+
+
+def kernel_window_frame(conn, dev, repeat):
+    """K9 at the running-sum query's SF1 shape (window_frame_cases), each
+    case printed; the kernel line is the running sum."""
+    cases = [run_window_frame_case(c, repeat)
+             for c in window_frame_cases(conn, dev)]
     print("window_frame cases: " + json.dumps(cases), flush=True)
     line = cases[1]
     return {"name": "window_frame", "route": "cuda",
@@ -3056,7 +3163,6 @@ def main() -> int:
               kernel_hll_registers(conn, dev, REPEAT),
               kernel_segment_pick(conn, dev, REPEAT)]
     del q51_calls
-    kernel_unnest_channels(dev, REPEAT)
     torch_op_rows(conn, ds_conn, dec_conn, dev, REPEAT)
     torch.cuda.synchronize()
     print(f"phase 3: kernels hold against their plain versions "

@@ -1,29 +1,34 @@
 #!/usr/bin/env python3
-"""K1 direct_agg, K5 join_probe, K7 segmented_scan (and window_bounds) and
-K8 key_change_flags against another checkout's kernels, in one process on
-one GPU.
+"""K1 direct_agg, K5 join_probe, K7 segmented_scan (and window_bounds), K8
+key_change_flags, K9 window_frame and K11 unnest_expand against another
+checkout's kernels, in one process on one GPU.
 
     python3 kernel_ab.py OTHER [--out ab.json] [--only KERNEL,...]
 
 OTHER is the root of another checkout of this repository (for example the
 parent commit, unpacked with `git archive`). Its presto_tpu_torch/native.py,
-ops/aggregate.py, ops/join.py, ops/scan.py and ops/keys.py are loaded under
-other module names, so that their wrappers launch OTHER's kernels, built by
-OTHER's native.py from OTHER's csrc/ into OTHER's build directory.
-chip_smoke.py's phase-3 shapes of the kernels (direct_agg_cases,
-direct_agg_sum128_case, join_probe_cases, seg_scan_cases and
-key_change_cases; TPC-H SF1 for the join's, K7's and K8's, TPC-DS SF1 for
-K7's q51 inputs) are built once; each is held against its plain version
-under both checkouts (run_direct_agg_case, run_join_probe_case,
-run_scan_case, run_key_change_case, which also time the plain versions and
-library calls), then timed with CUDA events (chip_smoke.cuda_time_ms,
-chip_smoke.REPEAT calls) in turns: OTHER, this checkout, this checkout,
-OTHER. Where OTHER's ops/scan.py has no window_bounds, its bounds case is
-the four segmented_scan launches and two shifts a window took before.
---only limits the run to the named kernels (direct_agg, join_probe,
-segmented_scan, key_change_flags). Prints per case the four times and
-writes them, with the card's name and power limit, as JSON to --out.
-Fails where there is no CUDA device.
+ops/aggregate.py, ops/join.py, ops/scan.py, ops/keys.py, ops/window.py and
+ops/unnest.py are loaded under other module names, so that their wrappers
+launch OTHER's kernels, built by OTHER's native.py from OTHER's csrc/ into
+OTHER's build directory. chip_smoke.py's phase-3 shapes of the kernels
+(direct_agg_cases, direct_agg_sum128_case, join_probe_cases,
+seg_scan_cases, key_change_cases, window_frame_cases and
+unnest_expand_cases; TPC-H SF1 for the join's, K7's, K8's and K9's, TPC-DS
+SF1 for K7's q51 inputs, the SF1 nested orders for K11's) are built once;
+each is held against its plain version under both checkouts
+(run_direct_agg_case, run_join_probe_case, run_scan_case,
+run_key_change_case, run_window_frame_case, run_unnest_case, which also
+time the plain versions and library calls), then timed with CUDA events
+(chip_smoke.cuda_time_ms, chip_smoke.REPEAT calls) in turns: OTHER, this
+checkout, this checkout, OTHER. Where OTHER's ops/scan.py has no
+window_bounds, its bounds case is the four segmented_scan launches and two
+shifts a window took before. --only limits the run to the named kernels
+(direct_agg, join_probe, segmented_scan, key_change_flags, window_frame,
+unnest_expand). --trace also runs each case once per checkout under
+torch.profiler and reports the device time of each kernel and copy the
+call launches (microseconds, by name). Prints per case the four times and writes them, with the
+card's name and power limit, as JSON to --out. Fails where there is no
+CUDA device.
 """
 
 from __future__ import annotations
@@ -51,8 +56,9 @@ def _load(path: Path, name: str):
 
 
 def other_modules(root: Path):
-    """(aggregate, join, scan, keys) of the checkout at `root`, whose
-    wrappers load their kernels through that checkout's native.py."""
+    """(aggregate, join, scan, keys, window, unnest) of the checkout at
+    `root`, whose wrappers load their kernels through that checkout's
+    native.py."""
     import presto_tpu_torch
     pkg = root / "presto_tpu_torch"
     native = _load(pkg / "native.py", "other_native")
@@ -60,6 +66,8 @@ def other_modules(root: Path):
     join = _load(pkg / "ops" / "join.py", "other_join")
     scan = _load(pkg / "ops" / "scan.py", "other_scan")
     keys = _load(pkg / "ops" / "keys.py", "other_keys")
+    window = _load(pkg / "ops" / "window.py", "other_window")
+    unnest = _load(pkg / "ops" / "unnest.py", "other_unnest")
 
     @contextlib.contextmanager
     def own_native():
@@ -87,13 +95,18 @@ def other_modules(root: Path):
     if hasattr(scan, "window_bounds"):
         S.window_bounds = wrap(scan.window_bounds)
     K = types.SimpleNamespace(key_change_flags=wrap(keys.key_change_flags))
-    built = native.build(["direct_agg", "join", "seg_scan", "keys"])
-    return A, J, S, K, built
+    W = types.SimpleNamespace(window_frame=wrap(window.window_frame))
+    U = types.SimpleNamespace(unnest_expand=wrap(unnest.unnest_expand))
+    built = native.build(["direct_agg", "join", "seg_scan", "keys",
+                          "window", "unnest"])
+    return A, J, S, K, W, U, built
 
 
-KERNELS = ("direct_agg", "join_probe", "segmented_scan", "key_change_flags")
+KERNELS = ("direct_agg", "join_probe", "segmented_scan", "key_change_flags",
+           "window_frame", "unnest_expand")
 LIBS = {"direct_agg": "direct_agg", "join_probe": "join",
-        "segmented_scan": "seg_scan", "key_change_flags": "keys"}
+        "segmented_scan": "seg_scan", "key_change_flags": "keys",
+        "window_frame": "window", "unnest_expand": "unnest"}
 
 
 def _calls(kind, c, m):
@@ -109,6 +122,10 @@ def _calls(kind, c, m):
     if kind == "key_change_flags":
         args = (c["perm"], c["keys"], c["num_rows"], c["npart"], c["mode"])
         return lambda: m.key_change_flags(*args)
+    if kind == "window_frame":
+        return lambda: m.window_frame(*c["args"])
+    if kind == "unnest_expand":
+        return lambda: m.unnest_expand(*c["args"])
     if c["op"] == "bounds":
         part, peer = c["part_start"], c["peer_start"]
         if hasattr(m, "window_bounds"):
@@ -118,11 +135,30 @@ def _calls(kind, c, m):
     return lambda: m.segmented_scan(*args)
 
 
+def _device_us(fn) -> dict:
+    """Device microseconds of each kernel and copy of one call of fn
+    (torch.profiler), by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if ev.device_type.name == "CUDA":
+            name = ev.name[:60]
+            out[name] = out.get(name, 0.0) + ev.time_range.elapsed_us()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("other", type=Path)
     ap.add_argument("--out", type=Path)
     ap.add_argument("--only", default=",".join(KERNELS))
+    ap.add_argument("--trace", action="store_true")
     opts = ap.parse_args()
     only = opts.only.split(",")
     if not set(only) <= set(KERNELS):
@@ -138,11 +174,13 @@ def main() -> int:
     from presto_tpu_torch.ops import join as J
     from presto_tpu_torch.ops import keys as K
     from presto_tpu_torch.ops import scan as S
+    from presto_tpu_torch.ops import unnest as U
+    from presto_tpu_torch.ops import window as W
     card = CS.card_line()
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     built = native.build()
-    oA, oJ, oS, oK, obuilt = other_modules(opts.other.resolve())
+    oA, oJ, oS, oK, oW, oU, obuilt = other_modules(opts.other.resolve())
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     for tag, libs in (("this", built), ("other", obuilt)):
         for name in (LIBS[k] for k in only):
@@ -169,6 +207,14 @@ def main() -> int:
     if "key_change_flags" in only:
         runs.append(("key_change_flags", CS.key_change_cases(conn, dev),
                      CS.run_key_change_case, (oK, K)))
+    if "window_frame" in only:
+        runs.append(("window_frame", CS.window_frame_cases(conn, dev),
+                     CS.run_window_frame_case, (oW, W)))
+    if "unnest_expand" in only:
+        from presto_tpu_torch.connectors.tpch import nested_orders
+        runs.append(("unnest_expand",
+                     CS.unnest_expand_cases(nested_orders(CS.SF), dev),
+                     CS.run_unnest_case, (oU, U)))
     rows = []
     for kind, cases, run, mods in runs:
         for c in cases:
@@ -182,6 +228,12 @@ def main() -> int:
                    "bound_ms": checked[1]["bound_ms"],
                    "plain_ms": checked[1]["plain_ms"],
                    "library_ms": checked[1].get("library_ms")}
+            for key in ("scatter_ms", "fill_ms"):
+                if key in checked[1]:
+                    row[key] = checked[1][key]
+            if opts.trace:
+                row["other_us"], row["this_us"] = (_device_us(other),
+                                                   _device_us(this))
             rows.append(row)
             print(json.dumps(row), flush=True)
     if opts.out:

@@ -62,11 +62,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "keys": {
         "key_change": [_P, _I64, _P, _P, _P, _I32, _P, _P, _P, _I32, _I32,
                        _I32, _P, _P, _P]},
-    "window": {"window_frame": [_P, _P, _P, _I64, _P]},
+    "window": {"window_frame": [_P, _P, _P, _I64, _P, _P]},
     "int128": {"int128_op": [_P, _P]},
     "unnest": {
-        "unnest_expand": [_P, _I32, _I64, _P, _I64, _I64, _P, _P, _P, _P,
-                          _P, _P, _P, _P, _P, _P]},
+        "unnest_expand": [_P, _P, _I32, _I64, _P, _I64, _I64, _P, _P, _P,
+                          _P, _P, _P, _P, _P]},
     "hll": {
         "hll_direct": [_P, _I32, _P, _P, _I64, _I32, _P, _P, _P, _P],
         "hll_sorted": [_P, _I32, _P, _I64, _P, _P, _I64, _P, _P, _P, _P]},
@@ -83,6 +83,8 @@ SCRATCH_SIGNATURES: Dict[str, Dict[str, list]] = {
     "segment_reduce": {"segment_reduce_scratch_words": [_I64, _I64]},
     "join": {"join_probe_scratch_words": [_I64]},
     "seg_scan": {"segmented_scan_scratch_words": [_I64]},
+    "window": {"window_frame_scratch_words": [_P, _I64]},
+    "unnest": {"unnest_expand_scratch_words": [_I64, _I64]},
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

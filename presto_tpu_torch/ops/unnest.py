@@ -23,12 +23,6 @@ import torch
 from presto_tpu_torch.data.column import Column, NestedColumn, Page
 from presto_tpu_torch.types import BIGINT
 
-#: the unnest channels one launch of K11's passes reads (csrc/unnest.cu);
-#: more channels take more launches, so both versions take any number
-MAX_CHANNELS = 8
-#: rows per tile of K11's prefix sum (csrc/unnest.cu UX_TILE)
-EXPAND_TILE = 2048
-
 
 def _unnest_expand_plain(starts: Sequence[torch.Tensor],
                          lengths: Sequence[torch.Tensor],
@@ -124,14 +118,17 @@ def unnest_expand(starts: Sequence[torch.Tensor],
     lengths = [t.contiguous() for t in lengths]
     nulls = [t.contiguous() for t in nulls]
     num_rows = num_rows.reshape(()).contiguous()
-    ptrs = (ctypes.c_void_p * (3 * nch))(
-        *[t.data_ptr() for t in (*starts, *lengths, *nulls)])
-    cum = torch.empty(max(cap, 1), dtype=torch.int64, device=dev)
-    # channels past the first MAX_CHANNELS: their per-row maximum
-    extra = (torch.empty(max(cap, 1), dtype=torch.int64, device=dev)
-             if nch > MAX_CHANNELS else None)
-    tiles = torch.empty(max((cap + EXPAND_TILE - 1) // EXPAND_TILE, 1),
-                        dtype=torch.int64, device=dev)
+    addrs = [t.data_ptr() for t in (*starts, *lengths, *nulls)]
+    ptrs = (ctypes.c_void_p * (3 * nch))(*addrs)
+    # the same pointers on the card, copied from pinned memory so that the
+    # copy does not wait for the stream
+    chan = torch.tensor(addrs, dtype=torch.int64).pin_memory().to(
+        dev, non_blocking=True)
+    lib = native.load("unnest")
+    # tile status, the slot blocks' partition and the rows' prefix sums
+    # (the layout: the library's own)
+    scratch = torch.empty(lib.unnest_expand_scratch_words(cap, out_capacity),
+                          dtype=torch.int64, device=dev)
     total = torch.empty((), dtype=torch.int64, device=dev)
     parent = torch.empty(out_capacity, dtype=torch.int64, device=dev)
     out_valid = torch.empty(out_capacity, dtype=torch.bool, device=dev)
@@ -139,16 +136,14 @@ def unnest_expand(starts: Sequence[torch.Tensor],
     ok = torch.empty((nch, out_capacity), dtype=torch.bool, device=dev)
     ordv = (torch.empty(out_capacity, dtype=torch.int64, device=dev)
             if with_ordinality else None)
-    lib = native.load("unnest")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.unnest_expand(
-            ctypes.cast(ptrs, ctypes.c_void_p), nch, cap,
+            ctypes.cast(ptrs, ctypes.c_void_p),
+            ctypes.c_void_p(chan.data_ptr()), nch, cap,
             ctypes.c_void_p(num_rows.data_ptr()), out_capacity,
             BIGINT.null_sentinel(),
-            ctypes.c_void_p(cum.data_ptr()),
-            ctypes.c_void_p(tiles.data_ptr()),
-            ctypes.c_void_p(extra.data_ptr() if extra is not None else 0),
+            ctypes.c_void_p(scratch.data_ptr()),
             ctypes.c_void_p(total.data_ptr()),
             ctypes.c_void_p(parent.data_ptr()),
             ctypes.c_void_p(out_valid.data_ptr()),

@@ -16,14 +16,17 @@ The port's twin of presto_tpu/ops/window.py (`window_page` :126,
    differences of one global running sum, :279-299; a segmented sum gives
    the same frame sums with less cancellation), running min/max for frames
    with one unbounded side, a prefix of peer starts for dense_rank;
-5. one launch of `window_frame` (kernel K9, csrc/window.cu) per function:
+5. one call of `window_frame` (kernel K9, csrc/window.cu) per function:
    per sorted row its frame bounds and value, written straight to the
    row's original position (out[perm[i]] = w[i]), so the JAX package's
-   argsort of the inverse permutation (:386) and its gather go.
+   argsort of the inverse permutation (:386) and its gather go. The
+   library picks a kernel instance by the function's class and the
+   sources of its frame bounds.
 
-A min/max frame bounded on both sides is folded over [lo, hi] per row (the
-frame's span is a short static literal in every query of the repo); the
-JAX package answers it from a sparse table (:340-383), the same function.
+A min/max frame bounded on both sides by offsets at most 64 rows wide is
+folded from shared memory; a wider one, or a RANGE frame of the row's
+peers, reads a sparse table that the same call builds in scratch (the JAX
+package's structure, :340-383).
 
 Supported, as in the JAX package: row_number, rank, dense_rank, ntile,
 lag/lead (offset + default), first_value/last_value/nth_value, and
@@ -307,11 +310,19 @@ def window_frame(kind: str, frame: Optional[Frame], iparams, dparams,
     ip = (ctypes.c_int64 * N_IPARAMS)(*[int(v) for v in iparams])
     dp = (ctypes.c_double * N_DPARAMS)(*[float(v) for v in dparams])
     lib = native.load("window")
+    # a both-bounded min/max frame too wide for shared memory reads a
+    # sparse table built in this scratch (its size: the library's own)
+    words = lib.window_frame_scratch_words(ctypes.cast(ip, ctypes.c_void_p),
+                                           n)
+    scratch = (torch.empty(words, dtype=torch.int64, device=dev)
+               if words > 0 else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.window_frame(ctypes.cast(ptrs, ctypes.c_void_p),
                               ctypes.cast(ip, ctypes.c_void_p),
                               ctypes.cast(dp, ctypes.c_void_p), n,
+                              ctypes.c_void_p(scratch.data_ptr()
+                                              if scratch is not None else 0),
                               ctypes.c_void_p(stream))
     native.check(rc, "window_frame", "window")
     window_frame.launches += 1

@@ -704,6 +704,98 @@ def test_window_page_on_the_card_matches_the_cpu(cuda, cap, n):
             _same(g.values, p.values)
 
 
+#: K9's other routes and classes: both-bounded min/max frames folded in
+#: shared memory (up to 64 rows wide) and from the sparse table (wider, or a
+#: RANGE frame of the row's peers), every frame-bound source, defaults
+K9_SPECS = WINDOW_SPECS + [
+    W.WindowSpec("min", 2, T.DOUBLE,
+                 frame=W.Frame("rows", "preceding", 31, "following", 32)),
+    W.WindowSpec("max", 3, T.BIGINT,
+                 frame=W.Frame("rows", "preceding", 70, "preceding", 3)),
+    W.WindowSpec("min", 2, T.DOUBLE,
+                 frame=W.Frame("rows", "preceding", 1000, "following", 1000)),
+    W.WindowSpec("max", 4, T.VARCHAR,
+                 frame=W.Frame("rows", "following", 1, "following", 100)),
+    W.WindowSpec("min", 2, T.DOUBLE,
+                 frame=W.Frame("range", "current", None, "current", None)),
+    W.WindowSpec("max", 3, T.BIGINT,
+                 frame=W.Frame("rows", "following", 2, "preceding", 2)),
+    W.WindowSpec("last_value", 3, T.BIGINT,
+                 frame=W.Frame("range", "current", None, "current", None)),
+    W.WindowSpec("first_value", 4, T.VARCHAR,
+                 frame=W.Frame("rows", "preceding", 3, "preceding", 1)),
+    W.WindowSpec("count", 2, T.BIGINT,
+                 frame=W.Frame("rows", "unbounded_preceding", None,
+                               "following", 2)),
+    W.WindowSpec("avg", 3, T.DOUBLE,
+                 frame=W.Frame("range", "current", None,
+                               "unbounded_following", None)),
+    W.WindowSpec("sum", 3, T.BIGINT,
+                 frame=W.Frame("rows", "preceding", 2, "unbounded_following",
+                               None)),
+    W.WindowSpec("max", 2, T.DOUBLE,
+                 frame=W.Frame("rows", "unbounded_preceding", None,
+                               "unbounded_following", None)),
+    W.WindowSpec("lead", 2, T.DOUBLE, 3, 0.5),
+    W.WindowSpec("lag", 1, T.DOUBLE, 1),
+    # NaN in the frame: the extreme is NaN on both routes
+    W.WindowSpec("max", 1, T.DOUBLE,
+                 frame=W.Frame("rows", "preceding", 5, "following", 5)),
+    W.WindowSpec("min", 1, T.DOUBLE,
+                 frame=W.Frame("rows", "preceding", 100, "following", 100)),
+]
+
+#: case -> (capacity, rows, partition fields, identity permutation)
+K9_CASES = {
+    "random_perm": (4096, 3001, (0,), False),
+    "identity_perm": (4096, 3001, (0,), True),
+    "one_row_partitions": (4096, 4000, (2,), False),
+    "one_partition": (8192, 6000, (), False),
+    "n1": (256, 1, (0,), False),
+    "large": (1 << 20, 1_000_003, (0,), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K9_CASES))
+def test_window_frame_kernel_matches_plain_and_repeats(cuda, case):
+    """K9 on every kind and frame-bound source, both min/max routes, with
+    the sort's permutation and with the identity: exact against the plain
+    version on the card (float sums and averages within RTOL), one launch
+    a call, and two launches equal bit for bit."""
+    import dataclasses
+    cap, n, parts, ident = K9_CASES[case]
+    rng = np.random.default_rng(cap + n)
+    page = _window_page(rng, n, cap)
+    on = C.Page(tuple(_on(c, cuda) for c in page.columns),
+                page.num_rows.to(cuda), page.names)
+    sw = W.sort_window(on, parts, [K.SortKey(1),
+                                   K.SortKey(3, ascending=False,
+                                             nulls_first=True)])
+    if ident:
+        sw = dataclasses.replace(sw, perm=torch.arange(
+            cap, dtype=torch.int64, device=cuda))
+    for spec in K9_SPECS:
+        fi = W.frame_inputs(on, sw, spec)
+        args = (spec.kind, fi.frame, fi.iparams, fi.dparams, sw.perm,
+                on.num_rows, sw.ps, sw.pe, sw.qs, sw.qe, fi.vals, fi.nulls,
+                fi.aux_i, fi.aux_v, fi.out_dtype)
+        before = W.window_frame.launches
+        got, again = W.window_frame(*args), W.window_frame(*args)
+        torch.cuda.synchronize()
+        assert W.window_frame.launches == before + 2
+        plain = W._window_frame_plain(*args)
+        _same(got[1], plain[1])
+        _same(again[1], got[1])
+        if got[0].dtype == torch.float64:
+            _same(again[0].view(torch.int64), got[0].view(torch.int64))
+        else:
+            _same(again[0], got[0])
+        if spec.kind in ("sum", "avg") and spec.output_type == T.DOUBLE:
+            _close(got[0], plain[0])
+        else:
+            _same(got[0], plain[0])
+
+
 def test_wrappers_refuse_mixed_devices(cuda):
     with pytest.raises(ValueError):
         S.segment_reduce(torch.zeros(4, dtype=torch.float64, device=cuda),
@@ -973,8 +1065,8 @@ def test_unnest_expand_kernel_matches_plain(cuda, cap, num_rows, nch,
 @pytest.mark.parametrize("nch", [9, 12])
 def test_unnest_expand_kernel_beyond_eight_channels_matches_plain(cuda,
                                                                   nch):
-    """More channels than one launch reads (MAX_CHANNELS): the counts
-    take every channel and the slot pass runs per group of eight."""
+    """More than eight channels: the count pass reads every channel and
+    the slot pass writes every channel's lanes."""
     from presto_tpu_torch.ops import unnest as U
     rng = np.random.default_rng(61)
     st, ln, nl = _unnest_channels(rng, 50_000, nch, "cpu")
@@ -988,6 +1080,70 @@ def test_unnest_expand_kernel_beyond_eight_channels_matches_plain(cuda,
     assert U.unnest_expand.launches == before + 1
     for g, p in zip(got, plain):
         _same(g, p)
+
+
+def _skewed_channels(rng, cap, dev, long_len):
+    """Two channels over rows about 60% NULL, 35% empty and 5% of 1-3
+    elements, the first with one row of `long_len` elements."""
+    starts, lengths, nulls = [], [], []
+    for c in range(2):
+        u = rng.random(cap)
+        ln = np.where(u < 0.95, 0, rng.integers(1, 4, cap)).astype(np.int32)
+        if c == 0:
+            ln[cap // 3] = long_len
+        nl = (u < 0.6) & (ln < long_len)
+        starts.append(torch.from_numpy(np.concatenate(
+            [[0], np.cumsum(ln)[:-1]]).astype(np.int32)).to(dev))
+        lengths.append(torch.from_numpy(ln).to(dev))
+        nulls.append(torch.from_numpy(nl).to(dev))
+    return starts, lengths, nulls
+
+
+#: case -> (capacity, num_rows, channels or "skewed" / "nearly_all_null",
+#: out_cap, ordinality)
+K11_CASES = {
+    "skewed": (1 << 18, 200_000, "skewed", 1 << 21, True),
+    "skewed_below_total": (1 << 18, 200_000, "skewed", 1 << 19, True),
+    "nearly_all_null": (1 << 18, 1 << 18, "nearly_all_null", 1 << 16, True),
+    "nch1": (50_000, 41_234, 1, 1 << 19, False),
+    "nch8": (50_000, 41_234, 8, 1 << 19, True),
+    "nch9": (50_000, 41_234, 9, 1 << 19, True),
+    "nch12": (50_000, 41_234, 12, 1 << 19, True),
+    "nch12_below_total": (50_000, 41_234, 12, 1 << 17, True),
+    "no_rows": (50_000, 0, 3, 1 << 12, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K11_CASES))
+def test_unnest_expand_cases_match_plain(cuda, case):
+    """K11 on a skewed page (one row of 2^20 elements among rows mostly
+    empty or NULL), a page nearly all NULL, 1, 8, 9 and 12 channels, no
+    live rows, and capacities below the total: every lane exactly the
+    plain version's, one launch a call."""
+    from presto_tpu_torch.ops import unnest as U
+    cap, num_rows, kind, out_cap, ordinality = K11_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if kind == "skewed":
+        st, ln, nl = _skewed_channels(rng, cap, cuda, 1 << 20)
+    elif kind == "nearly_all_null":
+        st, ln, nl = _unnest_channels(rng, cap, 2, cuda)
+        keep = torch.from_numpy(rng.random(cap) < 0.001).to(cuda)
+        nl = [~keep for _ in nl]
+    else:
+        st, ln, nl = _unnest_channels(rng, cap, kind, cuda)
+    n = torch.tensor(num_rows, dtype=torch.int64, device=cuda)
+    before = U.unnest_expand.launches
+    got = U.unnest_expand(st, ln, nl, n, out_cap, ordinality)
+    torch.cuda.synchronize()
+    assert U.unnest_expand.launches == before + 1
+    plain = U._unnest_expand_plain(st, ln, nl, n, out_cap, ordinality)
+    for g, p in zip(got, plain):
+        if p is None:
+            assert g is None
+        else:
+            _same(g, p)
+    if case.endswith("below_total"):
+        assert int(got[-1]) > out_cap
 
 
 def test_nine_column_unnest_on_the_card_matches_the_cpu(cuda):

@@ -345,6 +345,54 @@ def test_unnest_expand_plain_matches_jax_layout(name):
         assert torch.equal(a, b)
 
 
+def _long_row_page(n=400, long_len=5000):
+    """Two ARRAY(BIGINT) channels over rows that are mostly NULL (60%) or
+    empty (35%), with one row of `long_len` elements in the first."""
+    rng = np.random.default_rng(71)
+    chans = []
+    for _ in range(2):
+        rows = []
+        for u in rng.random(n):
+            rows.append(None if u < 0.6 else [] if u < 0.95 else
+                        [int(v) for v in rng.integers(0, 99,
+                                                      rng.integers(1, 4))])
+        chans.append(rows)
+    chans[0][n // 3] = [int(v) for v in rng.integers(-50, 50, long_len)]
+    types = {"id": RT.BIGINT, "xs": RT.parse_type("array(bigint)"),
+             "ys": RT.parse_type("array(bigint)")}
+    ref = RC.Page.from_pydict({"id": list(range(n)), "xs": chans[0],
+                               "ys": chans[1]}, types)
+    return ref, list(types.values())
+
+
+@pytest.mark.parametrize("out_cap", [8192, 4096])
+def test_unnest_page_with_one_long_row_matches_jax(out_cap):
+    """One row of 5,000 elements among empty and NULL rows, at a capacity
+    above and below the total, against the JAX function: rows, total and
+    every lane of the layout."""
+    ref, ref_types = _long_row_page()
+    port = _port_page(ref, ref_types)
+    names = ("id", "x", "y", "n")
+    rout, rtotal = RU.unnest_page(ref, (0,), (1, 2), out_cap, True, names)
+    pout, ptotal = PU.unnest_page(port, (0,), (1, 2), out_cap, True, names)
+    assert int(ptotal) == int(rtotal) > 5000
+    n = min(int(rtotal), out_cap)
+    want = RC.Page(rout.columns, jnp.asarray(n, jnp.int32), rout.names)
+    _same_rows(pout.to_pylist(), want.to_pylist())
+    nested = [port.columns[f] for f in (1, 2)]
+    parent, out_valid, eidx, ok, ordv, total = PU.unnest_expand(
+        [c.starts for c in nested], [c.lengths for c in nested],
+        [c.nulls for c in nested], port.num_rows, out_cap, True)
+    rtotal, rparent, rwithin, rvalid, reidx, rok = _jax_layout(
+        ref, (1, 2), out_cap)
+    assert np.array_equal(out_valid.numpy(), rvalid)
+    assert np.array_equal(parent.numpy()[rvalid], rparent[rvalid])
+    assert np.array_equal(ordv.numpy()[rvalid] - 1, rwithin[rvalid])
+    for c in range(2):
+        assert np.array_equal(eidx[c].numpy()[rvalid], reidx[c][rvalid])
+        assert np.array_equal(ok[c].numpy(), rok[c])
+
+
 def test_unnest_expand_edges():
     """A page of capacity 0 gives total 0; all-NULL rows give no slots;
     lengths and starts of any size sum in int64; the plain version takes
@@ -363,7 +411,7 @@ def test_unnest_expand_edges():
                            [torch.zeros(4, dtype=torch.bool)] * 2,
                            torch.tensor(4), 16, False)
     assert int(out[-1]) == 2**32
-    # the plain version takes more channels than the kernel's eight
+    # the plain version takes nine channels, as the kernel does
     ln9 = [torch.tensor([c, 1, 0, 2], dtype=torch.int32) for c in range(9)]
     out = PU.unnest_expand([torch.zeros(4, dtype=torch.int32)] * 9, ln9,
                            [torch.zeros(4, dtype=torch.bool)] * 9,

@@ -462,6 +462,36 @@ def test_window_page_matches_jax(layout):
             assert pc.dictionary is None, what
 
 
+#: a min/max frame bounded on both sides 2,001 rows wide, which the JAX
+#: package answers from its sparse table (:340-383) and the port's kernel
+#: from a sparse table of its own; partitions shorter and longer than it
+WIDE_FRAME = _frame("rows", "preceding", 1000, "following", 1000)
+WIDE_SPECS = [("min", 2, "double"), ("max", 3, "bigint"),
+              ("min", 4, "varchar"), ("max", 6, "boolean")]
+
+
+@pytest.mark.parametrize("layout", ["global_desc", "part_order"])
+def test_wide_both_bounded_frame_matches_jax_sparse_table(layout):
+    rng = np.random.default_rng(23)
+    n = 4500
+    ref, port = _pages(_window_cols(rng, n), n=n, cap=8192)
+    parts, order = LAYOUTS[layout]
+    rkeys = [RK.SortKey(f, a, nf) for f, a, nf in order]
+    pkeys = [PK.SortKey(f, a, nf) for f, a, nf in order]
+    r_out = RW.window_page(ref, parts, rkeys, [
+        RW.WindowSpec(k, f, RT.parse_type(t), frame=WIDE_FRAME[0])
+        for k, f, t in WIDE_SPECS])
+    p_out = PW.window_page(port, parts, pkeys, [
+        PW.WindowSpec(k, f, PT.parse_type(t), frame=WIDE_FRAME[1])
+        for k, f, t in WIDE_SPECS])
+    base = len(ref.columns)
+    for i, spec in enumerate(WIDE_SPECS):
+        rc, pc = r_out.columns[base + i], p_out.columns[base + i]
+        what = f"{layout}: {spec}"
+        _exact(pc.nulls, rc.nulls, what)
+        _exact(_flushed(pc.values), _flushed(rc.values), what)
+
+
 def test_row_number_over_ties_follows_the_stable_sort():
     """row_number among peers: rows with equal keys keep their page order
     in both packages (stable sorts)."""
