@@ -20,14 +20,16 @@ Phases, each fatal on failure, each printing its seconds:
      nested orders' l_partkeys and l_returned with the ordinality, at the
      capacity the executor gives that unnest and at one below the total,
      on 9 and 12 seeded channels and on a skewed page (one row of 2^20
-     elements among rows mostly empty or NULL), K12 hll_registers in direct mode on a2's and a1's columns
-     (their first values replaced by values whose hash has w = 2^k - 1)
-     and in sorted mode on 1.5M one-row groups, a3's 10,000 groups and
+     elements among rows mostly empty or NULL), K12 hll_registers in
+     direct mode on a2's and a1's columns (their first values replaced by
+     values whose hash has w = 2^k - 1) and on 8,388,608 rows of one
+     value, and in sorted mode on 1.5M one-row groups, a3's 10,000 groups and
      a4's seven groups of 0.86M rows, K13 segment_pick on a1's global
      median and a3's 10,000 groups) at the shapes SF1 gives it on the main
      path
      (K1-K3 on seeded numpy data; K4-K6 on q13's join of customer with
-     orders; K7 on TPC-DS q51's largest window input and on orders
+     orders, K6 also with the build side in key order, at half its
+     capacity and on a skewed probe side with one row of 2^20 pairs; K7 on TPC-DS q51's largest window input and on orders
      partitioned by o_custkey; K8 and K9 on that orders page, K9's rank,
      running sum and min over 3 rows each side also with the identity
      permutation, and its min over 1,000 rows each side; K10 and the
@@ -1304,10 +1306,15 @@ def kernel_join_probe(conn, dev, repeat):
             "library_ms": window["library_ms"]}
 
 
-def kernel_join_expand(conn, dev, repeat):
-    """K6 at q13's shape: the LEFT join's pairs of 150,000 customers with
-    their orders (one null-extended pair for a customer without one), at
-    the capacity the executor learns for them."""
+def join_expand_cases(conn, dev) -> list:
+    """Phase 3's K6 shapes: q13's (the LEFT join's pairs of 150,000
+    customers with their orders, one null-extended pair for a customer
+    without one, at the capacity the executor learns for them); the same
+    with the build side in key order (the key lane permuted to sorted
+    order, `order` the identity), so the key gather is coalesced; the same
+    at half that capacity, below the total; and a skewed probe side of
+    1,048,576 rows, one with 2^20 pairs, about 1% with 1-3 and the rest
+    none, into 2,097,152 build rows in random order."""
     import torch
     from presto_tpu_torch.data.column import bucket_capacity
     from presto_tpu_torch.ops import join as J
@@ -1320,41 +1327,105 @@ def kernel_join_expand(conn, dev, repeat):
     counts = torch.where(cust.row_valid(), cnt.clamp(min=1), cnt)
     total = int(counts.sum())
     out_cap = bucket_capacity(total)
-    args = (counts, cnt, lo, order, pvals, bvals, out_cap)
+    ident = torch.arange(order.shape[0], dtype=torch.int64, device=dev)
+    cases = [{"case": "q13", "library": True,
+              "args": (counts, cnt, lo, order, pvals, bvals, out_cap)},
+             {"case": "q13, build side in key order", "library": False,
+              "args": (counts, cnt, lo, ident, pvals,
+                       [bvals[0][order].contiguous()], out_cap)},
+             {"case": "q13, capacity below the total", "library": False,
+              "args": (counts, cnt, lo, order, pvals, bvals, out_cap // 2)}]
+    rng = np.random.default_rng(SEED + 12)
+    n, nb = 1 << 20, 1 << 21
+    some = rng.random(n) < 0.01
+    wc = np.where(some, rng.integers(1, 4, n), 0)
+    wc[n // 3] = 1 << 20
+    los = np.where(some, rng.integers(0, nb - 4, n), 0)
+    los[n // 3] = nb // 4
+    cnts = np.where(rng.random(n) < 0.002, np.maximum(wc, 1), wc)  # LEFT
+    keys = (torch_from(rng.integers(0, 4, n), dev),
+            torch_from(rng.integers(0, 4, nb), dev))
+    cases.append({"case": "skewed: one probe row of 2^20 pairs",
+                  "library": False,
+                  "args": (torch_from(cnts, dev), torch_from(wc, dev),
+                           torch_from(los, dev),
+                           torch_from(rng.permutation(nb), dev), [keys[0]],
+                           [keys[1]], bucket_capacity(int(cnts.sum())))})
+    return cases
+
+
+def run_join_expand_case(c, repeat, J=None) -> dict:
+    """One K6 case (join_expand_cases) held exactly against its plain
+    version, launched twice (bit for bit), timed beside it, its bound and
+    its stores alone (torch zeroing the three output lanes); q13's also
+    beside torch.repeat_interleave writing the parent lane alone. J: the
+    module whose wrapper runs (default: this checkout's ops/join)."""
+    import torch
+    from presto_tpu_torch.ops import join as mine
+    if J is None:
+        J = mine
+    args = c["args"]
+    counts, wcnt, lo, order, pvals, bvals, out_cap = args
 
     def kernel():
         return J.join_expand(*args)
 
     def plain():
-        return J._join_expand_plain(*args)
+        return mine._join_expand_plain(*args)
 
-    got, want = kernel(), plain()
-    for g, w in zip(got, want):
-        if not exact(g, w):
-            fail("join_expand differs from the plain version")
-    if int(got[3]) != total:
-        fail("join_expand's total differs from the sum of the counts")
-    print(f"join_expand at q13's shape: {total} pairs in a capacity of "
-          f"{out_cap}", flush=True)
-    probe_rows = torch.arange(counts.shape[0], device=dev)
+    got, again, want = kernel(), kernel(), plain()
+    for g, a, w in zip(got, again, want):
+        if not (exact(g, w) and exact(g, a)):
+            fail(f"join_expand ({c['case']}) differs from the plain version "
+                 f"or between two launches")
+    total = int(got[3])
+    if total != int(counts.sum()):
+        fail(f"join_expand ({c['case']}): the total differs from the sum "
+             f"of the counts")
+    p, live = counts.shape[0], min(total, out_cap)
+    # per probe row its count, window count and start (24 B) and key;
+    # per live slot its sorted position's build row (8 B) and that row's
+    # key; per slot the probe row, build row and flag written (17 B)
+    nbytes = (p * (24 + sum(v.element_size() for v in pvals))
+              + live * (8 + sum(v.element_size() for v in bvals))
+              + out_cap * 17)
+    outs = got[:3]
 
-    def library():
-        torch.repeat_interleave(probe_rows, counts, output_size=total)
+    def fill():
+        for t in outs:
+            t.zero_()
 
-    p = counts.shape[0]
-    # counts, windows and starts read once (24 B/row) with the probe key
-    # (8 B/row); per pair the sorted position's build row and its key
-    # (16 B); per pair slot the probe row, build row and flag written
-    nbytes = p * 32 + total * 16 + out_cap * 17
+    library_ms = None
+    if c["library"]:
+        rows = torch.arange(p, device=counts.device)
+        library_ms = cuda_time_ms(lambda: torch.repeat_interleave(
+            rows, counts, output_size=total), repeat)
+    return {"case": c["case"], "probe_rows": p, "pairs": total,
+            "out_cap": out_cap, "max_abs_err": 0.0,
+            "ms": cuda_time_ms(kernel, repeat),
+            "plain_ms": cuda_time_ms(plain, max(repeat // 4, 2)),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "library_ms": library_ms, "fill_ms": cuda_time_ms(fill, repeat)}
+
+
+def kernel_join_expand(conn, dev, repeat):
+    """K6 at join_expand_cases' shapes, each printed; the kernel line is
+    q13's, beside torch.repeat_interleave of its parent lane (not the same
+    function: it writes neither the build row nor the flag)."""
+    cases = [run_join_expand_case(c, repeat)
+             for c in join_expand_cases(conn, dev)]
+    print("join_expand cases: " + json.dumps(cases), flush=True)
+    line = cases[0]
+    print(f"join_expand at q13's shape: {line['pairs']} pairs in a capacity "
+          f"of {line['out_cap']}: {line['ms']:.5f} ms, "
+          f"torch.repeat_interleave of the parent lane "
+          f"{line['library_ms']:.5f} ms", flush=True)
     return {"name": "join_expand", "route": "cuda",
             "source": "presto_tpu_torch/csrc/join.cu",
             "replaces": "presto_tpu/ops/join.py:237",
-            "max_abs_err": 0.0,
-            "ms": cuda_time_ms(kernel, repeat),
-            "plain_ms": cuda_time_ms(plain, repeat),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes",
-            "library_ms": cuda_time_ms(library, repeat)}
+            "max_abs_err": 0.0, "ms": line["ms"],
+            "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
+            "bound_by": "bytes", "library_ms": line["library_ms"]}
 
 
 def nested_counts(table) -> list:
@@ -1515,34 +1586,16 @@ def _hll_bytes(flags: int, live: int, bins: int = 0, groups: int = 0):
             + bins * (2048 * 4 + 16) + groups * 32)
 
 
-def _hll_case(what, vals, live, repeat, **mode) -> dict:
-    """K12 in one mode against its plain version on the card (registers,
-    present and count exact), timed beside it."""
-    from presto_tpu_torch.ops import aggregate as A
-    got = A.hll_registers(vals, live, **mode)
-    want = A._hll_registers_plain(vals, live, mode.get("codes"),
-                                  mode.get("bins"), mode.get("starts"),
-                                  mode.get("ends"))
-    for name, g, w in zip(("present", "count", "registers"), got, want):
-        if (g is None) != (w is None) or (g is not None and not exact(g, w)):
-            fail(f"hll_registers ({what}) {name} differ from the plain "
-                 f"version")
-    return {"ms": cuda_time_ms(lambda: A.hll_registers(vals, live, **mode),
-                               repeat),
-            "plain_ms": cuda_time_ms(lambda: A._hll_registers_plain(
-                vals, live, mode.get("codes"), mode.get("bins"),
-                mode.get("starts"), mode.get("ends")), max(repeat // 4, 2))}
-
-
-def kernel_hll_registers(conn, dev, repeat) -> dict:
-    """K12 at phase 4e's SF1 shapes. Direct mode (the kernel line): a2's
+def hll_registers_cases(conn, dev) -> list:
+    """Phase 3's K12 shapes, over phase 4e's SF1 columns. Direct mode: a2's
     approx_distinct(l_orderkey) by l_returnflag, l_linestatus (12 bins,
-    6,001,215 rows in the 8,388,608-row page), its first values replaced
-    by values whose hash has w = 2^k - 1 for k in 0..53 (where the float32
-    rounding moves the rank), and a1's global l_partkey. Sorted mode, on
-    lines of their own: 1,500,000 one-row groups (a 2,097,152-row page,
-    as orders by o_orderkey), a3's 10,000 groups of about 600 rows and
-    a4's seven groups of about 0.86M rows, over l_partkey."""
+    6,001,215 rows in the 8,388,608-row page), its first values replaced by
+    values whose hash has w = 2^k - 1 for k in 0..53 (where the float32
+    rounding moves the rank; the kernel line); a1's global l_partkey; and
+    8,388,608 rows of one value (every row on one register). Sorted mode:
+    1,500,000 one-row groups (a 2,097,152-row page, as orders by
+    o_orderkey), a3's 10,000 groups of about 600 rows and a4's seven
+    groups of about 0.86M rows, over l_partkey."""
     import torch
     from presto_tpu_torch.ops import aggregate as A
     page = conn.table("lineitem").page(
@@ -1551,6 +1604,7 @@ def kernel_hll_registers(conn, dev, repeat) -> dict:
     rf, ls, okey, pkey = page.columns
     cap, n = page.capacity, int(page.num_rows)
     live = page.row_valid()
+    live_rows = int(live.sum())
     bounds = torch.from_numpy(np.concatenate(
         [hll_boundary_values(range(54), r) for r in (0, 7, 2047)])).to(dev)
     vals = okey.values.clone()
@@ -1560,16 +1614,18 @@ def kernel_hll_registers(conn, dev, repeat) -> dict:
     domains = [len(rf.dictionary), len(ls.dictionary)]
     bins = (domains[0] + 1) * (domains[1] + 1)
     codes = A._bin_codes(keys, domains, cap, dev)
-    direct = _hll_case("direct, a2", vals, live, repeat, codes=codes,
-                       bins=bins)
     zero = torch.zeros(cap, dtype=torch.int32, device=dev)
-    glob = _hll_case("global, a1", pkey.values, live, repeat, codes=zero,
-                     bins=1)
-    print(f"hll_registers global (a1's l_partkey, {n} rows): "
-          f"{glob['ms']:.3f} ms, plain {glob['plain_ms']:.3f} ms, bound "
-          f"{_hll_bytes(cap, n, bins=1) / HBM_BYTES_PER_S * 1e3:.4f} ms",
-          flush=True)
-
+    cases = [{"case": "direct, a2", "vals": vals, "live": live,
+              "mode": {"codes": codes, "bins": bins},
+              "bytes": _hll_bytes(cap, live_rows, bins=bins)},
+             {"case": f"global, a1 ({n} rows)", "vals": pkey.values,
+              "live": live, "mode": {"codes": zero, "bins": 1},
+              "bytes": _hll_bytes(cap, live_rows, bins=1)},
+             {"case": f"direct, {cap} rows of one value",
+              "vals": torch.full((cap,), 42, dtype=torch.int64, device=dev),
+              "live": torch.ones(cap, dtype=torch.bool, device=dev),
+              "mode": {"codes": zero, "bins": 1},
+              "bytes": _hll_bytes(cap, cap, bins=1)}]
     rng = np.random.default_rng(SEED + 13)
     sizes = {"1,500,000 one-row groups": (
                  np.ones(1_500_000, np.int64), 2_097_152, 2_097_152),
@@ -1586,23 +1642,62 @@ def kernel_hll_registers(conn, dev, repeat) -> dict:
             [ends_np, np.full(pad, total)])).to(dev)
         starts = torch.from_numpy(np.concatenate(
             [ends_np - lengths, np.full(pad, total)])).to(dev)
-        sv = pkey.values[:rows_cap].contiguous()
-        sl = torch.arange(rows_cap, device=dev) < total
-        r = _hll_case(f"sorted, {what}", sv, sl, repeat, starts=starts,
-                      ends=ends)
-        bound = _hll_bytes(total, total, groups=g_cap) \
-            / HBM_BYTES_PER_S * 1e3
-        print(f"hll_registers sorted ({what}, {total} rows, {g_cap} group "
-              f"slots): {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-              f"bound {bound:.4f} ms", flush=True)
-    live_rows = int(live.sum())
+        cases.append({"case": f"sorted, {what} ({total} rows, {g_cap} group "
+                              f"slots)",
+                      "vals": pkey.values[:rows_cap].contiguous(),
+                      "live": torch.arange(rows_cap, device=dev) < total,
+                      "mode": {"starts": starts, "ends": ends},
+                      "bytes": _hll_bytes(total, total, groups=g_cap)})
+    return cases
+
+
+def run_hll_case(c, repeat, A=None) -> dict:
+    """One K12 case (hll_registers_cases): registers, present and count
+    held exactly against the plain version and between two launches,
+    timed beside the plain version and the bound. A: the module whose
+    wrapper runs (default: this checkout's ops/aggregate)."""
+    from presto_tpu_torch.ops import aggregate as mine
+    if A is None:
+        A = mine
+    vals, live, mode = c["vals"], c["live"], c["mode"]
+
+    def kernel():
+        return A.hll_registers(vals, live, **mode)
+
+    def plain():
+        return mine._hll_registers_plain(vals, live, mode.get("codes"),
+                                         mode.get("bins"),
+                                         mode.get("starts"),
+                                         mode.get("ends"))
+
+    got, again, want = kernel(), kernel(), plain()
+    for name, g, a, w in zip(("present", "count", "registers"), got, again,
+                             want):
+        if (g is None) != (w is None) or (g is not None and not (
+                exact(g, w) and exact(g, a))):
+            fail(f"hll_registers ({c['case']}) {name} differ from the plain "
+                 f"version or between two launches")
+    return {"case": c["case"], "max_abs_err": 0.0,
+            "ms": cuda_time_ms(kernel, repeat),
+            "plain_ms": cuda_time_ms(plain, max(repeat // 4, 2)),
+            "bound_ms": c["bytes"] / HBM_BYTES_PER_S * 1e3}
+
+
+def kernel_hll_registers(conn, dev, repeat) -> dict:
+    """K12 at hll_registers_cases' shapes, each printed on a line of its
+    own; the kernel line is a2's direct mode."""
+    cases = [run_hll_case(c, repeat) for c in hll_registers_cases(conn, dev)]
+    print("hll_registers cases: " + json.dumps(cases), flush=True)
+    for r in cases:
+        print(f"hll_registers {r['case']}: {r['ms']:.5f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms",
+              flush=True)
+    line = cases[0]
     return {"name": "hll_registers", "route": "cuda",
             "source": "presto_tpu_torch/csrc/hll.cu",
             "replaces": "presto_tpu/ops/aggregate.py:71",
-            "max_abs_err": 0.0, "ms": direct["ms"],
-            "plain_ms": direct["plain_ms"],
-            "bound_ms": _hll_bytes(cap, live_rows, bins=bins)
-            / HBM_BYTES_PER_S * 1e3,
+            "max_abs_err": 0.0, "ms": line["ms"],
+            "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
             "bound_by": "bytes", "library_ms": None}
 
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""K1 direct_agg, K5 join_probe, K7 segmented_scan (and window_bounds), K8
-key_change_flags, K9 window_frame and K11 unnest_expand against another
-checkout's kernels, in one process on one GPU.
+"""K1 direct_agg, K5 join_probe, K6 join_expand, K7 segmented_scan (and
+window_bounds), K8 key_change_flags, K9 window_frame, K11 unnest_expand
+and K12 hll_registers against another checkout's kernels, in one process
+on one GPU.
 
     python3 kernel_ab.py OTHER [--out ab.json] [--only KERNEL,...]
 
@@ -12,19 +13,20 @@ ops/unnest.py are loaded under other module names, so that their wrappers
 launch OTHER's kernels, built by OTHER's native.py from OTHER's csrc/ into
 OTHER's build directory. chip_smoke.py's phase-3 shapes of the kernels
 (direct_agg_cases, direct_agg_sum128_case, join_probe_cases,
-seg_scan_cases, key_change_cases, window_frame_cases and
-unnest_expand_cases; TPC-H SF1 for the join's, K7's, K8's and K9's, TPC-DS
-SF1 for K7's q51 inputs, the SF1 nested orders for K11's) are built once;
-each is held against its plain version under both checkouts
-(run_direct_agg_case, run_join_probe_case, run_scan_case,
-run_key_change_case, run_window_frame_case, run_unnest_case, which also
-time the plain versions and library calls), then timed with CUDA events
+join_expand_cases, seg_scan_cases, key_change_cases, window_frame_cases,
+unnest_expand_cases and hll_registers_cases; TPC-H SF1 for the joins',
+K7's, K8's, K9's and K12's, TPC-DS SF1 for K7's q51 inputs, the SF1
+nested orders for K11's) are built once; each is held against its plain
+version under both checkouts (run_direct_agg_case, run_join_probe_case,
+run_join_expand_case, run_scan_case, run_key_change_case,
+run_window_frame_case, run_unnest_case, run_hll_case, which also time the
+plain versions and library calls), then timed with CUDA events
 (chip_smoke.cuda_time_ms, chip_smoke.REPEAT calls) in turns: OTHER, this
 checkout, this checkout, OTHER. Where OTHER's ops/scan.py has no
 window_bounds, its bounds case is the four segmented_scan launches and two
 shifts a window took before. --only limits the run to the named kernels
-(direct_agg, join_probe, segmented_scan, key_change_flags, window_frame,
-unnest_expand). --trace also runs each case once per checkout under
+(direct_agg, join_probe, join_expand, segmented_scan, key_change_flags,
+window_frame, unnest_expand, hll_registers). --trace also runs each case once per checkout under
 torch.profiler and reports the device time of each kernel and copy the
 call launches (microseconds, by name). Prints per case the four times and writes them, with the
 card's name and power limit, as JSON to --out. Fails where there is no
@@ -80,17 +82,19 @@ def other_modules(root: Path):
             presto_tpu_torch.native = mine
 
     def wrap(fn):
-        def call(*args):
+        def call(*args, **kwargs):
             with own_native():
-                return fn(*args)
+                return fn(*args, **kwargs)
         return call
 
     A = types.SimpleNamespace(
         direct_agg=wrap(agg.direct_agg),
         _direct_agg_plain=agg._direct_agg_plain, WANT_SUM=agg.WANT_SUM,
-        WANT_MINMAX=agg.WANT_MINMAX, WANT_SUM128=agg.WANT_SUM128)
+        WANT_MINMAX=agg.WANT_MINMAX, WANT_SUM128=agg.WANT_SUM128,
+        hll_registers=wrap(agg.hll_registers))
     J = types.SimpleNamespace(join_probe=wrap(join.join_probe),
-                              _join_probe_plain=join._join_probe_plain)
+                              _join_probe_plain=join._join_probe_plain,
+                              join_expand=wrap(join.join_expand))
     S = types.SimpleNamespace(segmented_scan=wrap(scan.segmented_scan))
     if hasattr(scan, "window_bounds"):
         S.window_bounds = wrap(scan.window_bounds)
@@ -98,15 +102,17 @@ def other_modules(root: Path):
     W = types.SimpleNamespace(window_frame=wrap(window.window_frame))
     U = types.SimpleNamespace(unnest_expand=wrap(unnest.unnest_expand))
     built = native.build(["direct_agg", "join", "seg_scan", "keys",
-                          "window", "unnest"])
+                          "window", "unnest", "hll"])
     return A, J, S, K, W, U, built
 
 
-KERNELS = ("direct_agg", "join_probe", "segmented_scan", "key_change_flags",
-           "window_frame", "unnest_expand")
+KERNELS = ("direct_agg", "join_probe", "join_expand", "segmented_scan",
+           "key_change_flags", "window_frame", "unnest_expand",
+           "hll_registers")
 LIBS = {"direct_agg": "direct_agg", "join_probe": "join",
-        "segmented_scan": "seg_scan", "key_change_flags": "keys",
-        "window_frame": "window", "unnest_expand": "unnest"}
+        "join_expand": "join", "segmented_scan": "seg_scan",
+        "key_change_flags": "keys", "window_frame": "window",
+        "unnest_expand": "unnest", "hll_registers": "hll"}
 
 
 def _calls(kind, c, m):
@@ -126,6 +132,10 @@ def _calls(kind, c, m):
         return lambda: m.window_frame(*c["args"])
     if kind == "unnest_expand":
         return lambda: m.unnest_expand(*c["args"])
+    if kind == "join_expand":
+        return lambda: m.join_expand(*c["args"])
+    if kind == "hll_registers":
+        return lambda: m.hll_registers(c["vals"], c["live"], **c["mode"])
     if c["op"] == "bounds":
         part, peer = c["part_start"], c["peer_start"]
         if hasattr(m, "window_bounds"):
@@ -183,7 +193,7 @@ def main() -> int:
     oA, oJ, oS, oK, oW, oU, obuilt = other_modules(opts.other.resolve())
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     for tag, libs in (("this", built), ("other", obuilt)):
-        for name in (LIBS[k] for k in only):
+        for name in dict.fromkeys(LIBS[k] for k in only):
             for line in libs[name]["report"].splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {tag} {name}: {line.strip()}")
@@ -197,6 +207,9 @@ def main() -> int:
     if "join_probe" in only:
         runs.append(("join_probe", CS.join_probe_cases(conn, dev),
                      CS.run_join_probe_case, (oJ, J)))
+    if "join_expand" in only:
+        runs.append(("join_expand", CS.join_expand_cases(conn, dev),
+                     CS.run_join_expand_case, (oJ, J)))
     if "segmented_scan" in only:
         ds_sql, _ = CS.tpcds_queries()
         q51 = CS.capture_windows(LocalEngine(TpcdsConnector(CS.TPCDS_SF)),
@@ -215,6 +228,9 @@ def main() -> int:
         runs.append(("unnest_expand",
                      CS.unnest_expand_cases(nested_orders(CS.SF), dev),
                      CS.run_unnest_case, (oU, U)))
+    if "hll_registers" in only:
+        runs.append(("hll_registers", CS.hll_registers_cases(conn, dev),
+                     CS.run_hll_case, (oA, A)))
     rows = []
     for kind, cases, run, mods in runs:
         for c in cases:

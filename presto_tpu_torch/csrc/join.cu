@@ -48,29 +48,46 @@
 //
 // K6 join_expand: given per probe row its pair count (the window count,
 // or at least 1 for a live row of a LEFT join), lays out the pairs in
-// (probe row, sorted build position) order. Four launches: per-tile sums
-// of the counts, a one-block scan of the tile sums (which writes the
-// total), per-row inclusive prefix sums, then one thread per pair slot
-// below out_capacity, which binary-searches the prefix sums for its probe
-// row and writes the probe row, the build row and whether it is a real
-// candidate whose keys equal the probe's. Prefix sums are int64: pair
-// counts reach 2**26 and beyond before the executor's retry sees them.
-// Bound on an H100: memory. Counts are read twice and the prefix sums
-// written and read once (8 B/row each); each pair slot writes 17 B.
+// (probe row, sorted build position) order and writes for every pair slot
+// below out_capacity the probe row, the build row and whether it is a real
+// candidate whose keys equal the probe's. Replaces the expansion of
+// presto_tpu/ops/join.py:hash_join: blocked_cumsum (:305-307), then the
+// searchsorted, the gathers and the key recheck (:309-320). Two launches
+// laid out by merge path (merge_path.cuh, shared with K11), after a memset
+// of the ticket and tile status words:
+//   1. counts: each count read once (16-byte loads where aligned); cum,
+//      the total (unclamped: the executor watches it for an overflow) and
+//      the slot blocks' partition, with a decoupled look-back;
+//   2. slots, a programmatic dependent launch: a block stages its rows'
+//      ends, finds each slot's row and offset k by the merge in shared
+//      memory, then takes JE_PAIRS pairs of slots a thread: each slot's
+//      window count and start (its row's; neighbouring slots share them),
+//      then every sorted position's build row, order[lo + k] (contiguous
+//      within a window), before any key gather; the key lanes are gathered
+//      lane by lane across the thread's slots, one switch on the dtypes a
+//      lane; the probe row, build row and flag are stored two slots at a
+//      time (16- and 2-byte stores), dead slots past the total included.
+// One probe row of 2^20 pairs, or a probe side whose rows nearly all own
+// no pair, gives every block the same number of merged items. Prefix sums
+// are int64: pair counts reach 2**26 and beyond before the executor's
+// retry sees them.
+// Bound on an H100: memory. Each probe row's count, window count and
+// window start are read once (24 B) with its key (8 B a lane); per real
+// pair its sorted position's build row and that row's key (16 B); each
+// pair slot writes 17 B. The kernel also writes and reads cum (16 B a
+// row). Where the build side is not in key order each pair's key gather
+// takes a 32 B sector of its own.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "block_scan.cuh"
+#include "merge_path.cuh"
 
 #define MAX_LANES 16        // = ops/keys.MAX_KEY_LANES
 #define PROBE_THREADS 256
-#define JE_THREADS 256
-#define JE_ITEMS 8
-#define JE_TILE (JE_THREADS * JE_ITEMS)   // = ops/join.EXPAND_TILE
-#define SCAN_THREADS 1024
 #define MAX_BLOCKS (132 * 64)             // grid-stride beyond this
+#define JE_PAIRS 2          // pairs of slots a thread of K6's slot pass
 #define DIR_MAX_BITS 20                   // at most 2^20 directory buckets
 #define DIR_ROWS_LOG2 3   // about 2^3 build rows (of the capacity) a bucket
 #define DIR_THREADS 512
@@ -129,13 +146,6 @@ static __device__ bool keys_equal(const KeyLanes& k, int64_t pi,
     }
   }
   return true;
-}
-
-// waits until the grid this one was launched behind (a programmatic
-// dependent launch) has finished and its writes are visible; PTX
-// griddepcontrol, sm_90
-static __device__ __forceinline__ void wait_for_prior_grid() {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
 static __device__ __forceinline__ int64_t bucket_of(int64_t h, int shift) {
@@ -333,100 +343,170 @@ __global__ void join_probe_kernel(const int64_t* __restrict__ ph, int64_t n,
   }
 }
 
-// 1. per tile: the sum of its pair counts
-__global__ void expand_count_kernel(const int64_t* __restrict__ counts,
-                                    int64_t n,
-                                    int64_t* __restrict__ tile_sums) {
-  const int64_t base = (int64_t)blockIdx.x * JE_TILE
-                       + (int64_t)threadIdx.x * JE_ITEMS;
-  int64_t c = 0;
+// key lane v (dtype dt) at rows idx[0 .. S-1], the loads together
+template <int S>
+static __device__ __forceinline__ void lane_int(const void* v, int dt,
+                                                const int64_t (&idx)[S],
+                                                int64_t (&x)[S]) {
+  if (dt == DT_I64) {
 #pragma unroll
-  for (int k = 0; k < JE_ITEMS; ++k) {
-    const int64_t i = base + k;
-    if (i < n) c += counts[i];
-  }
-  int64_t total;
-  block_exclusive_scan(c, &total);
-  if (threadIdx.x == 0) tile_sums[blockIdx.x] = total;
-}
-
-// 2. one block: tile sums (in) -> exclusive tile offsets (out), *total
-__global__ void expand_scan_kernel(int64_t* __restrict__ tile_sums,
-                                   int64_t ntiles, int64_t* total) {
-  int64_t carry = 0;
-  for (int64_t start = 0; start < ntiles; start += blockDim.x) {
-    const int64_t j = start + threadIdx.x;
-    const int64_t x = j < ntiles ? tile_sums[j] : 0;
-    int64_t chunk_total;
-    const int64_t excl = block_exclusive_scan(x, &chunk_total);
-    if (j < ntiles) tile_sums[j] = carry + excl;
-    carry += chunk_total;
-  }
-  if (threadIdx.x == 0) *total = carry;
-}
-
-// 3. per tile: inclusive prefix sums of the counts
-__global__ void expand_cum_kernel(const int64_t* __restrict__ counts,
-                                  int64_t n,
-                                  const int64_t* __restrict__ tile_offsets,
-                                  int64_t* __restrict__ cum) {
-  const int64_t base = (int64_t)blockIdx.x * JE_TILE
-                       + (int64_t)threadIdx.x * JE_ITEMS;
-  int64_t c[JE_ITEMS];
-  int64_t s = 0;
+    for (int s = 0; s < S; ++s) x[s] = __ldg((const int64_t*)v + idx[s]);
+  } else if (dt == DT_I32) {
 #pragma unroll
-  for (int k = 0; k < JE_ITEMS; ++k) {
-    const int64_t i = base + k;
-    c[k] = i < n ? counts[i] : 0;
-    s += c[k];
-  }
-  int64_t tile_total;
-  int64_t run = tile_offsets[blockIdx.x]
-                + block_exclusive_scan(s, &tile_total);
+    for (int s = 0; s < S; ++s) x[s] = __ldg((const int32_t*)v + idx[s]);
+  } else {
 #pragma unroll
-  for (int k = 0; k < JE_ITEMS; ++k) {
-    const int64_t i = base + k;
-    run += c[k];
-    if (i < n) cum[i] = run;
+    for (int s = 0; s < S; ++s)
+      x[s] = __ldg((const uint8_t*)v + idx[s]) ? 1 : 0;
   }
 }
 
-// 4. one thread per pair slot
-__global__ void expand_pairs_kernel(const int64_t* __restrict__ cum,
-                                    const int64_t* __restrict__ counts,
-                                    const int64_t* __restrict__ wcnt,
-                                    const int64_t* __restrict__ lo,
-                                    int64_t n,
-                                    const int64_t* __restrict__ order,
-                                    int64_t nb, KeyLanes keys,
-                                    int64_t out_cap, const int64_t* total,
-                                    int64_t* __restrict__ pidx,
-                                    int64_t* __restrict__ bidx,
-                                    uint8_t* __restrict__ bvalid) {
-  const int64_t t = *total;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       j < out_cap; j += stride) {
-    if (j >= t) {
-      pidx[j] = 0;
-      bidx[j] = 0;
-      bvalid[j] = 0;
-      continue;
+template <int S>
+static __device__ __forceinline__ void lane_f64(const void* v, int dt,
+                                                const int64_t (&idx)[S],
+                                                double (&x)[S]) {
+  if (dt == DT_F64) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) x[s] = __ldg((const double*)v + idx[s]);
+  } else if (dt == DT_F32) {
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      x[s] = (double)__ldg((const float*)v + idx[s]);
+  } else {
+    int64_t y[S];
+    lane_int(v, dt, idx, y);
+#pragma unroll
+    for (int s = 0; s < S; ++s) x[s] = (double)y[s];
+  }
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+    if (fabs(x[s]) < F64_MIN_NORMAL) x[s] = 0.0;
+}
+
+// K6 1. each row's pair count read once; cum, the total and the slot
+// blocks' partition (merge_path.cuh)
+__global__ void __launch_bounds__(MP_THREADS) expand_count_kernel(
+    const int64_t* __restrict__ counts, int64_t n, int aligned,
+    unsigned* tickets, unsigned long long* status,
+    int64_t* __restrict__ part, int64_t nparts, int64_t out_cap,
+    int64_t* __restrict__ cum, int64_t* total, unsigned tiles) {
+  const unsigned t = take_tile(tickets);
+  const int64_t r0 = (int64_t)t * MP_TILE + (int64_t)threadIdx.x * MP_ITEMS;
+  int64_t m[MP_ITEMS];
+  if (aligned && r0 + MP_ITEMS <= n) {
+#pragma unroll
+    for (int q = 0; q < MP_ITEMS / 2; ++q) {
+      const longlong2 v = __ldg((const longlong2*)(counts + r0) + q);
+      m[2 * q] = v.x;
+      m[2 * q + 1] = v.y;
     }
-    int64_t a = 0, b = n;
-    while (a < b) {                      // first row with cum > j
-      const int64_t m = (a + b) >> 1;
-      if (cum[m] <= j) a = m + 1; else b = m;
+  } else {
+#pragma unroll
+    for (int k = 0; k < MP_ITEMS; ++k)
+      m[k] = r0 + k < n ? __ldg(counts + r0 + k) : 0;
+  }
+  publish_tile(m, t, tiles, n, out_cap, status, part, nparts, cum, total);
+}
+
+// K6 2. one block a slice of MP_TILE merged items (rows and pair slots)
+__global__ void __launch_bounds__(MP_THREADS) expand_slots_kernel(
+    const int64_t* __restrict__ cum, const int64_t* __restrict__ part,
+    const int64_t* __restrict__ wcnt, const int64_t* __restrict__ lo,
+    int64_t n, const int64_t* __restrict__ order, int64_t nb, KeyLanes keys,
+    int64_t out_cap, int64_t* __restrict__ pidx,
+    int64_t* __restrict__ bidx, uint8_t* __restrict__ bvalid, int vec) {
+  __shared__ int64_t s_cum[MP_TILE + 1];   // [0]: the end before row a0
+  __shared__ int16_t s_row[MP_TILE];       // each slot's row, less a0
+  const int tid = threadIdx.x;
+  wait_for_prior_grid();                 // cum and the partition
+  const SlotBlock sb = slot_block(part, n, out_cap);
+  const int64_t a0 = sb.a0, b0 = sb.b0;
+  if (tid == 0) s_cum[0] = a0 > 0 ? __ldg(cum + a0 - 1) : 0;
+  for (int x = tid; x < sb.na; x += MP_THREADS)
+    s_cum[1 + x] = __ldg(cum + a0 + x);
+  __syncthreads();
+  merge_slots(s_cum, sb, [&](int bi, int ai) { s_row[bi] = (int16_t)ai; });
+  __syncthreads();
+  // slots j = j00 + q * 2 * MP_THREADS + h (pair q, slot h of the pair):
+  // neighbouring threads hold neighbouring pairs
+  constexpr int S = 2 * JE_PAIRS;
+  const int64_t bend = b0 + sb.nb;
+  for (int64_t j00 = (b0 & ~1LL) + 2 * tid; j00 < bend;
+       j00 += 2 * MP_THREADS * JE_PAIRS) {
+    int64_t p[S], r[S];
+    bool in[S], live[S], eq[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int64_t j = j00 + (s >> 1) * (2 * MP_THREADS) + (s & 1);
+      in[s] = j >= b0 && j < bend;
+      const int ai = in[s] ? s_row[j - b0] : 0;
+      p[s] = a0 + ai;
+      live[s] = in[s] && p[s] < n;       // slots past the total are dead
+      const int64_t k = j - s_cum[ai];   // the slot's offset in its row
+      // its row's window count and start (row 0 for a dead slot, read
+      // only where there are rows); a candidate of the window or not
+      const int64_t pl = live[s] ? p[s] : 0;
+      eq[s] = live[s] && k < (n > 0 ? __ldg(wcnt + pl) : 0) && nb > 0;
+      const int64_t pos = (n > 0 ? __ldg(lo + pl) : 0) + k;
+      r[s] = pos < 0 ? 0 : (pos >= nb ? nb - 1 : pos);
     }
-    const int64_t p = a;
-    const int64_t k = j - (cum[p] - counts[p]);
-    const bool real = k < wcnt[p];
-    int64_t pos = lo[p] + k;
-    pos = pos < 0 ? 0 : (pos >= nb ? nb - 1 : pos);
-    const int64_t r = nb > 0 ? order[pos] : 0;
-    pidx[j] = p;
-    bidx[j] = r;
-    bvalid[j] = (real && keys_equal(keys, p, r)) ? 1 : 0;
+    if (nb > 0) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) r[s] = __ldg(order + r[s]);
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) r[s] = live[s] && nb > 0 ? r[s] : 0;
+    // the key lanes of the candidates: per lane one switch on the dtypes,
+    // then the thread's S loads together (the others read row 0, which
+    // exists on both sides once one slot is a candidate)
+    bool any = false;
+#pragma unroll
+    for (int s = 0; s < S; ++s) any |= eq[s];
+    for (int l = 0; any && l < keys.count; ++l) {
+      int64_t pi[S], bi[S];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        pi[s] = eq[s] ? p[s] : 0;
+        bi[s] = eq[s] ? r[s] : 0;
+      }
+      if (is_float(keys.pdt[l]) || is_float(keys.bdt[l])) {
+        double a[S], b[S];
+        lane_f64(keys.probe[l], keys.pdt[l], pi, a);
+        lane_f64(keys.build[l], keys.bdt[l], bi, b);
+#pragma unroll
+        for (int s = 0; s < S; ++s)
+          eq[s] = eq[s] && (a[s] == b[s] || (a[s] != a[s] && b[s] != b[s]));
+      } else {
+        int64_t a[S], b[S];
+        lane_int(keys.probe[l], keys.pdt[l], pi, a);
+        lane_int(keys.build[l], keys.bdt[l], bi, b);
+#pragma unroll
+        for (int s = 0; s < S; ++s) eq[s] = eq[s] && a[s] == b[s];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < JE_PAIRS; ++q) {
+      const int s = 2 * q;
+      const int64_t j0 = j00 + q * (2 * MP_THREADS);
+      const int64_t p0 = live[s] ? p[s] : 0, p1 = live[s + 1] ? p[s + 1] : 0;
+      if (vec && in[s] && in[s + 1]) {
+        *(longlong2*)(pidx + j0) = make_longlong2(p0, p1);
+        *(longlong2*)(bidx + j0) = make_longlong2(r[s], r[s + 1]);
+        *(uint16_t*)(bvalid + j0) =
+            (uint16_t)((eq[s] ? 1u : 0u) | (eq[s + 1] ? 0x100u : 0u));
+      } else {
+        if (in[s]) {
+          pidx[j0] = p0;
+          bidx[j0] = r[s];
+          bvalid[j0] = eq[s] ? 1 : 0;
+        }
+        if (in[s + 1]) {
+          pidx[j0 + 1] = p1;
+          bidx[j0 + 1] = r[s + 1];
+          bvalid[j0 + 1] = eq[s + 1] ? 1 : 0;
+        }
+      }
+    }
   }
 }
 
@@ -518,47 +598,70 @@ int join_probe(const void* ph, int64_t n, const void* bh, const void* order,
       (int64_t*)lo, (int64_t*)cnt, (int64_t*)hit, (uint8_t*)bflag);
 }
 
+// int64 words of scratch join_expand takes for n probe rows and out_cap
+// pair slots (merge_path.cuh's layout)
+int64_t join_expand_scratch_words(int64_t n, int64_t out_cap) {
+  return merge_layout(n < 0 ? 0 : n, out_cap < 0 ? 0 : out_cap).words;
+}
+
 // counts, wcnt, lo: [n] int64 (pair counts, window counts, window starts);
-// order: [nb]; key lanes as for join_probe; cum: [n] int64 scratch;
-// tiles: [max(ceil(n / JE_TILE), 1)] int64 scratch; total: device int64
+// order: [nb]; key lanes as for join_probe; scratch:
+// join_expand_scratch_words(n, out_cap) int64 words; total: device int64
 // scalar out; pidx, bidx: [out_cap] int64 out; bvalid: [out_cap] uint8 out.
 int join_expand(const void* counts, const void* wcnt, const void* lo,
                 int64_t n, const void* order, int64_t nb,
                 const void* const* probe, const int* pdt,
                 const void* const* build, const int* bdt, int count,
-                int64_t out_cap, void* cum, void* tiles, void* total,
-                void* pidx, void* bidx, void* bvalid, void* stream) {
+                int64_t out_cap, void* scratch, void* total, void* pidx,
+                void* bidx, void* bvalid, void* stream) {
   KeyLanes keys;
-  if (!fill_lanes(&keys, probe, pdt, build, bdt, count))
+  if (!fill_lanes(&keys, probe, pdt, build, bdt, count) || n < 0 || nb < 0
+      || out_cap < 0 || scratch == nullptr)
     return (int)cudaErrorInvalidValue;
+  const MergeLayout l = merge_layout(n, out_cap);
+  if (l.tiles > 0x7fffffffLL || l.nparts > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  int64_t* w = (int64_t*)scratch;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
-  if (n <= 0) {
+  if (n == 0) {
     e = cudaMemsetAsync(total, 0, sizeof(int64_t), s);
+    if (e == cudaSuccess)
+      e = cudaMemsetAsync(w + l.part, 0, (size_t)(l.nparts + 1) * 8, s);
     if (e != cudaSuccess) return (int)e;
   } else {
-    const int64_t ntiles = (n + JE_TILE - 1) / JE_TILE;
-    if (ntiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    expand_count_kernel<<<(unsigned)ntiles, JE_THREADS, 0, s>>>(
-        (const int64_t*)counts, n, (int64_t*)tiles);
-    e = cudaGetLastError();
+    e = cudaMemsetAsync(w + l.tickets, 0, (size_t)(1 + l.tiles) * 8, s);
     if (e != cudaSuccess) return (int)e;
-    expand_scan_kernel<<<1, SCAN_THREADS, 0, s>>>((int64_t*)tiles, ntiles,
-                                                  (int64_t*)total);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    expand_cum_kernel<<<(unsigned)ntiles, JE_THREADS, 0, s>>>(
-        (const int64_t*)counts, n, (const int64_t*)tiles, (int64_t*)cum);
+    expand_count_kernel<<<(unsigned)l.tiles, MP_THREADS, 0, s>>>(
+        (const int64_t*)counts, n, ((uintptr_t)counts & 15) == 0,
+        (unsigned*)(w + l.tickets), (unsigned long long*)(w + l.status),
+        w + l.part, l.nparts, out_cap, w + l.cum, (int64_t*)total,
+        (unsigned)l.tiles);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  if (out_cap <= 0) return 0;
-  expand_pairs_kernel<<<grid_for(out_cap, JE_THREADS), JE_THREADS, 0, s>>>(
-      (const int64_t*)cum, (const int64_t*)counts, (const int64_t*)wcnt,
+  if (out_cap == 0) return 0;
+  // 16-byte stores of the row lanes and 2-byte stores of the flags where
+  // the lanes start aligned
+  const int vec = !(((uintptr_t)pidx | (uintptr_t)bidx) & 15)
+                  && !((uintptr_t)bvalid & 1);
+  // launched behind the count pass as a programmatic dependent launch,
+  // which waits for it on the card, so its launch latency is not added
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)l.nparts);
+  cfg.blockDim = dim3(MP_THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = n > 0 ? 1 : 0;         // no count pass: a plain launch
+  return (int)cudaLaunchKernelEx(
+      &cfg, expand_slots_kernel, (const int64_t*)(w + l.cum),
+      (const int64_t*)(w + l.part), (const int64_t*)wcnt,
       (const int64_t*)lo, n, (const int64_t*)order, nb, keys, out_cap,
-      (const int64_t*)total, (int64_t*)pidx, (int64_t*)bidx,
-      (uint8_t*)bvalid);
-  return (int)cudaGetLastError();
+      (int64_t*)pidx, (int64_t*)bidx, (uint8_t*)bvalid, vec);
 }
 
 }  // extern "C"

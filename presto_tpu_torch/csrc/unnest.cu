@@ -11,9 +11,10 @@
 // lanes).
 //
 // Two launches, after a memset of the ticket and tile status words (the
-// second a programmatic dependent launch); the channels' pointers come as
-// a device array, so any number of channels is one pass:
-//   1. counts: tiles of UX_TILE rows taken by ticket; a thread reads its
+// second a programmatic dependent launch), laid out by merge path
+// (merge_path.cuh, shared with K6); the channels' pointers come as a
+// device array, so any number of channels is one pass:
+//   1. counts: tiles of MP_TILE rows taken by ticket; a thread reads its
 //      UX_ITEMS rows' lengths and null flags of every channel once
 //      (16- and 8-byte loads where aligned), a block scan gives the tile's
 //      sum, a decoupled look-back (Merrill and Garland, 2016; the scheme of
@@ -25,10 +26,10 @@
 //   2. slots, load-balanced (merge path): the row ends (cum) and the output
 //      slots 0 .. out_cap - 1 form one merged sequence (a row end before a
 //      slot j where cum <= j, so slot j's parent is the number of row ends
-//      before it); each block takes SL_TILE items of it, rows and slots
+//      before it); each block takes MP_TILE items of it, rows and slots
 //      together, from the partition, stages its rows' ends in shared
 //      memory, finds each slot's parent and position in its row by a merge
-//      of SL_ITEMS items a thread in shared memory, then writes every lane
+//      of MP_ITEMS items a thread in shared memory, then writes every lane
 //      of its slots with coalesced stores (16 bytes a thread for the 8-byte
 //      lanes, 4 for the flags): parent, flag, ordinality, and each
 //      channel's element index and entry flag. Slots at or past the total
@@ -48,60 +49,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "block_scan.cuh"
+#include "merge_path.cuh"
 
-#define UX_THREADS 256
-#define UX_ITEMS 8
-#define UX_TILE (UX_THREADS * UX_ITEMS)   // rows of a count tile
-#define SL_THREADS 256
-#define SL_ITEMS 8
-#define SL_TILE (SL_THREADS * SL_ITEMS)   // merged items (rows + slots)
-#define FULL 0xffffffffu
-// tile status word: flag bits over the value (a count below 2^62)
-#define ST_AGG (1ull << 62)      // the tile's own sum
-#define ST_PREFIX (1ull << 63)   // the sum up to and including the tile
-#define ST_VALUE (ST_AGG - 1)
-
-// The sum before tile t (t > 0), by warp 0: each lane waits for the word
-// of one predecessor, the nearest inclusive prefix ends the walk.
-static __device__ int64_t look_back(const unsigned long long* status,
-                                    unsigned t) {
-  const int lane = threadIdx.x & 31;
-  const volatile unsigned long long* st = status;
-  int64_t prefix = 0;
-  for (int64_t end = (int64_t)t - 1;; end -= 32) {
-    const int64_t j = end - lane;
-    unsigned long long s = ST_PREFIX;   // before tile 0: a prefix of 0
-    if (j >= 0) {
-      do {
-        s = st[j];
-      } while (!(s & (ST_AGG | ST_PREFIX)));
-    }
-    const unsigned pre = __ballot_sync(FULL, (s & ST_PREFIX) != 0);
-    int64_t v = (int64_t)(s & ST_VALUE);
-    if (pre && lane > __ffs(pre) - 1) v = 0;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-    prefix += v;
-    if (pre) return prefix;
-  }
-}
-
-// waits until the grid this one was launched behind (a programmatic
-// dependent launch) has finished and its writes are visible; PTX
-// griddepcontrol, sm_90
-static __device__ __forceinline__ void wait_for_prior_grid() {
-#ifdef __CUDA_ARCH__
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-#endif
-}
-
-// position of row a's end in the merged sequence: the rows before it and
-// the slots before its end
-static __device__ __forceinline__ int64_t merged_pos(int64_t a, int64_t end,
-                                                     int64_t out_cap) {
-  return a + (end < out_cap ? end : out_cap);
-}
+#define UX_ITEMS MP_ITEMS        // rows a thread of the count pass
+#define SL_TILE MP_TILE          // merged items (rows + slots) a slot block
 
 // channel c's lengths and null flags of rows r0 .. r0 + UX_ITEMS - 1 (16-
 // and 8-byte loads where whole; rows at or past nrows read as NULL)
@@ -133,22 +84,16 @@ static __device__ __forceinline__ void load_counts(
 }
 
 // 1. counts, cum, total and the slot blocks' partition
-__global__ void __launch_bounds__(UX_THREADS) unnest_count_kernel(
+__global__ void __launch_bounds__(MP_THREADS) unnest_count_kernel(
     const void* const* __restrict__ chan, int nch, int64_t cap,
     int64_t out_cap, const int64_t* __restrict__ num_rows, int aligned,
     unsigned* tickets, unsigned long long* status,
     int64_t* __restrict__ part, int64_t nparts, int64_t* __restrict__ cum,
     int64_t* total, unsigned tiles) {
-  __shared__ int64_t s_end[UX_TILE];
-  __shared__ unsigned tile_sh;
-  __shared__ int64_t before_sh;
-  const int tid = threadIdx.x;
-  if (tid == 0) tile_sh = atomicAdd(&tickets[0], 1u);
-  __syncthreads();
-  const unsigned t = tile_sh;
+  const unsigned t = take_tile(tickets);
   int64_t nrows = *num_rows;
   nrows = nrows < 0 ? 0 : (nrows < cap ? nrows : cap);
-  const int64_t r0 = (int64_t)t * UX_TILE + (int64_t)tid * UX_ITEMS;
+  const int64_t r0 = (int64_t)t * MP_TILE + (int64_t)threadIdx.x * UX_ITEMS;
   int64_t m[UX_ITEMS];
 #pragma unroll
   for (int k = 0; k < UX_ITEMS; ++k) m[k] = 0;
@@ -176,60 +121,7 @@ __global__ void __launch_bounds__(UX_THREADS) unnest_count_kernel(
         if (!z0[k] && l0[k] > m[k]) m[k] = l0[k];
     }
   }
-  int64_t s = 0;
-#pragma unroll
-  for (int k = 0; k < UX_ITEMS; ++k) s += m[k];
-  int64_t tile_total;
-  const int64_t excl = block_exclusive_scan(s, &tile_total);
-  if (tid < 32) {
-    int64_t before = 0;
-    if (t == 0) {
-      if (tid == 0)
-        *(volatile unsigned long long*)&status[0] = ST_PREFIX | tile_total;
-    } else {
-      if (tid == 0)
-        *(volatile unsigned long long*)&status[t] = ST_AGG | tile_total;
-      before = look_back(status, t);
-      if (tid == 0)
-        *(volatile unsigned long long*)&status[t] =
-            ST_PREFIX | (before + tile_total);
-    }
-    if (tid == 0) {
-      before_sh = before;
-      if (t == tiles - 1) *total = before + tile_total;
-    }
-  }
-  __syncthreads();
-  const int64_t before = before_sh;
-  const int64_t base = (int64_t)t * UX_TILE;
-  int64_t run = before + excl;
-#pragma unroll
-  for (int k = 0; k < UX_ITEMS; ++k) {
-    run += m[k];
-    s_end[tid * UX_ITEMS + k] = run;
-  }
-  __syncthreads();
-  const int rows = (int)(cap - base < UX_TILE ? cap - base : UX_TILE);
-  for (int x = tid; x < rows; x += UX_THREADS) cum[base + x] = s_end[x];
-  // the slot blocks whose first merged item k * SL_TILE lies after the
-  // tile's first row end's predecessor and at or before its last row end
-  // (the last tile: every block after): part[k] = the row ends before it
-  const int64_t pos_before = base == 0 ? -1
-      : merged_pos(base - 1, before, out_cap);
-  const int64_t k0 = (pos_before + SL_TILE) / SL_TILE;   // first D > pos
-  const int64_t k1 = t == tiles - 1 ? nparts
-      : merged_pos(base + rows - 1, s_end[rows - 1], out_cap) / SL_TILE;
-  const int64_t dmax = cap + out_cap;
-  for (int64_t k = k0 + tid; k <= k1; k += UX_THREADS) {
-    const int64_t d = k * SL_TILE < dmax ? k * SL_TILE : dmax;
-    int lo = 0, hi = rows;               // rows of the tile before d
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (merged_pos(base + mid, s_end[mid], out_cap) < d) lo = mid + 1;
-      else hi = mid;
-    }
-    part[k] = base + lo;
-  }
+  publish_tile(m, t, tiles, cap, out_cap, status, part, nparts, cum, total);
 }
 
 // two 8-byte lanes at x (16-byte aligned where whole): both at once, or
@@ -282,7 +174,7 @@ struct Slots {
 
 // 2. one block a slice of SL_TILE merged items: the parent of each of its
 // slots, then every lane of those slots
-__global__ void __launch_bounds__(SL_THREADS) unnest_slots_kernel(
+__global__ void __launch_bounds__(MP_THREADS) unnest_slots_kernel(
     const void* const* __restrict__ chan, int nch,
     const int64_t* __restrict__ cum, const int64_t* __restrict__ part,
     int64_t cap, int64_t out_cap, int64_t ord_sentinel,
@@ -294,43 +186,23 @@ __global__ void __launch_bounds__(SL_THREADS) unnest_slots_kernel(
   __shared__ int s_w[SL_TILE];              // its position within the row
   const int tid = threadIdx.x;
   wait_for_prior_grid();                 // cum and the partition
-  const int64_t d0 = (int64_t)blockIdx.x * SL_TILE;
-  const int64_t d1 = d0 + SL_TILE < cap + out_cap ? d0 + SL_TILE
-                                                  : cap + out_cap;
-  const int64_t a0 = __ldg(part + blockIdx.x), a1 = __ldg(part + blockIdx.x
-                                                           + 1);
-  const int64_t b0 = d0 - a0;
-  const int na = (int)(a1 - a0), nb = (int)(d1 - a1 - b0);
+  const SlotBlock sb = slot_block(part, cap, out_cap);
+  const int64_t a0 = sb.a0, b0 = sb.b0;
   if (tid == 0) s_cum[0] = a0 > 0 ? __ldg(cum + a0 - 1) : 0;
-  for (int x = tid; x < na; x += SL_THREADS)
+  for (int x = tid; x < sb.na; x += MP_THREADS)
     s_cum[1 + x] = __ldg(cum + a0 + x);
   __syncthreads();
-  // this thread's SL_ITEMS merged items: find where they start, then merge
-  const int dt = tid * SL_ITEMS < na + nb ? tid * SL_ITEMS : na + nb;
-  int lo = dt - nb > 0 ? dt - nb : 0, hi = dt < na ? dt : na;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (s_cum[1 + mid] <= b0 + (dt - 1 - mid)) lo = mid + 1;
-    else hi = mid;
-  }
-  int ai = lo, bi = dt - lo;
-  const int dend = dt + SL_ITEMS < na + nb ? dt + SL_ITEMS : na + nb;
-  for (int d = dt; d < dend; ++d) {
-    if (ai < na && (bi >= nb || s_cum[1 + ai] <= b0 + bi)) {
-      ++ai;
-    } else {
-      s_par[bi] = ai;
-      s_w[bi] = (int)(b0 + bi - s_cum[ai]);
-      ++bi;
-    }
-  }
+  merge_slots(s_cum, sb, [&](int bi, int ai) {
+    s_par[bi] = ai;
+    s_w[bi] = (int)(b0 + bi - s_cum[ai]);
+  });
   __syncthreads();
   // every lane of the block's slots [b0, bend): the 8-byte lanes two
   // slots a thread (16-byte stores), the flags four (4-byte stores), in
   // groups aligned to the lanes (a group cut by the block's edge stores
   // its slots one by one)
-  const int64_t bend = b0 + nb;
-  for (int64_t j0 = (b0 & ~1LL) + 2 * tid; j0 < bend; j0 += 2 * SL_THREADS) {
+  const int64_t bend = b0 + sb.nb;
+  for (int64_t j0 = (b0 & ~1LL) + 2 * tid; j0 < bend; j0 += 2 * MP_THREADS) {
     Slots<2> sl(j0, b0, bend, a0, cap, s_par, s_w);
     const bool whole = vec && sl.in[0] && sl.in[1];
     store2(parent + j0, sl.live[0] ? sl.p[0] : 0, sl.live[1] ? sl.p[1] : 0,
@@ -347,7 +219,7 @@ __global__ void __launch_bounds__(SL_THREADS) unnest_slots_kernel(
       store2(eidx + c * out_cap + j0, e[0], e[1], sl.in, whole);
     }
   }
-  for (int64_t j0 = (b0 & ~3LL) + 4 * tid; j0 < bend; j0 += 4 * SL_THREADS) {
+  for (int64_t j0 = (b0 & ~3LL) + 4 * tid; j0 < bend; j0 += 4 * MP_THREADS) {
     Slots<4> sl(j0, b0, bend, a0, cap, s_par, s_w);
     const bool whole = vec && sl.in[0] && sl.in[1] && sl.in[2] && sl.in[3];
     store4(out_valid + j0, sl.live, sl.in, whole);
@@ -364,23 +236,6 @@ __global__ void __launch_bounds__(SL_THREADS) unnest_slots_kernel(
   }
 }
 
-struct Layout {
-  int64_t tiles, nparts;
-  int64_t tickets, status, part, cum, words;   // offsets in words
-};
-
-static Layout layout(int64_t cap, int64_t out_cap) {
-  Layout l;
-  l.tiles = (cap + UX_TILE - 1) / UX_TILE;
-  l.nparts = (cap + out_cap + SL_TILE - 1) / SL_TILE;
-  l.tickets = 0;
-  l.status = l.tickets + 1;
-  l.part = l.status + l.tiles;
-  l.cum = l.part + l.nparts + 1;
-  l.words = l.cum + cap;
-  return l;
-}
-
 extern "C" {
 
 const char* kernel_error_string(int err) {
@@ -390,7 +245,7 @@ const char* kernel_error_string(int err) {
 // int64 words of scratch a call takes: the tickets, a status word a count
 // tile, the slot blocks' partition and each row's prefix sum.
 int64_t unnest_expand_scratch_words(int64_t cap, int64_t out_cap) {
-  return layout(cap, out_cap).words;
+  return merge_layout(cap, out_cap).words;
 }
 
 // ptrs: host array of 3 * nch device pointers, the channels' starts
@@ -407,7 +262,7 @@ int unnest_expand(const void* const* ptrs, const void* chan_dev, int nch,
                   void* ord, void* stream) {
   if (nch < 1 || cap < 0 || out_cap < 0 || !scratch || !chan_dev)
     return (int)cudaErrorInvalidValue;
-  const Layout l = layout(cap, out_cap);
+  const MergeLayout l = merge_layout(cap, out_cap);
   if (l.tiles > 0x7fffffffLL || l.nparts > 0x7fffffffLL
       || cap > 0x7fffffffLL || out_cap > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -428,7 +283,7 @@ int unnest_expand(const void* const* ptrs, const void* chan_dev, int nch,
       if (((uintptr_t)ptrs[nch + c] & 15)
           || ((uintptr_t)ptrs[2 * nch + c] & 7))
         aligned = 0;
-    unnest_count_kernel<<<(unsigned)l.tiles, UX_THREADS, 0, s>>>(
+    unnest_count_kernel<<<(unsigned)l.tiles, MP_THREADS, 0, s>>>(
         chan, nch, cap, out_cap, (const int64_t*)num_rows, aligned,
         (unsigned*)(w + l.tickets), (unsigned long long*)(w + l.status),
         w + l.part, l.nparts, w + l.cum, (int64_t*)total,
@@ -450,7 +305,7 @@ int unnest_expand(const void* const* ptrs, const void* chan_dev, int nch,
   attr.val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)l.nparts);
-  cfg.blockDim = dim3(SL_THREADS);
+  cfg.blockDim = dim3(MP_THREADS);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = s;
   cfg.attrs = &attr;

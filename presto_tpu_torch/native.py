@@ -55,7 +55,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "join_probe": [_P, _I64, _P, _P, _I64, _P, _P, _P, _P, _I32, _I32,
                        _P, _P, _P, _P, _P, _P],
         "join_expand": [_P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _I32,
-                        _I64, _P, _P, _P, _P, _P, _P, _P]},
+                        _I64, _P, _P, _P, _P, _P, _P]},
     "seg_scan": {
         "segmented_scan": [_P, _I32, _I32, _I32, _P, _I64, _P, _P, _P],
         "window_bounds": [_P, _P, _I64, _P, _P, _P, _P, _P, _P]},
@@ -68,7 +68,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "unnest_expand": [_P, _P, _I32, _I64, _P, _I64, _I64, _P, _P, _P,
                           _P, _P, _P, _P, _P]},
     "hll": {
-        "hll_direct": [_P, _I32, _P, _P, _I64, _I32, _P, _P, _P, _P],
+        "hll_direct": [_P, _I32, _P, _P, _I64, _I32, _P, _P, _P, _P, _P],
         "hll_sorted": [_P, _I32, _P, _I64, _P, _P, _I64, _P, _P, _P, _P]},
     "percentile": {
         "segment_pick": [_P, _I32, _I64, _P, _P, _I64, ctypes.c_double, _P,
@@ -81,10 +81,12 @@ SCRATCH_SIGNATURES: Dict[str, Dict[str, list]] = {
     "direct_agg": {"direct_agg_scratch_words": [_P]},
     "compact": {"compact_scratch_words": [_I64]},
     "segment_reduce": {"segment_reduce_scratch_words": [_I64, _I64]},
-    "join": {"join_probe_scratch_words": [_I64]},
+    "join": {"join_probe_scratch_words": [_I64],
+             "join_expand_scratch_words": [_I64, _I64]},
     "seg_scan": {"segmented_scan_scratch_words": [_I64]},
     "window": {"window_frame_scratch_words": [_P, _I64]},
     "unnest": {"unnest_expand_scratch_words": [_I64, _I64]},
+    "hll": {"hll_scratch_words": [_I64, _I32]},
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

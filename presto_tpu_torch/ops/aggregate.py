@@ -379,12 +379,12 @@ direct_agg.sum128_launches = 0
 _HLL_P = 11
 _HLL_M = 1 << _HLL_P
 _HLL_ALPHA = 0.7213 / (1.0 + 1.079 / _HLL_M)
-#: the most rows of a group one thread of K12's sorted mode dedupes
-#: (csrc/hll.cu SMALL_MAX)
+#: K12's sorted mode by group length (csrc/hll.cu): a group of at most
+#: HLL_SMALL_MAX rows takes one thread, one of at most HLL_PIECE rows one
+#: warp, a longer one a block per piece of at least HLL_PIECE rows; the
+#: tests size their groups by them
 HLL_SMALL_MAX = 32
-#: rows of a larger group one block of K12 takes at a time (csrc/hll.cu
-#: PIECE)
-HLL_PIECE = 16384
+HLL_PIECE = 4096
 
 
 def _hll_reg_rank(vals: torch.Tensor):
@@ -492,7 +492,8 @@ def hll_registers(values: torch.Tensor, live: torch.Tensor, *,
     (int32 in [0, bins), bins <= 64). Returns (present [bins], count
     [bins], registers [bins, 2048] int32 holding rank + 1, 0 if empty).
     Sorted mode (`starts`, `ends`): group g is the row run [starts[g],
-    ends[g]) (empty where ends <= starts). Returns (present [G], count
+    ends[g]) (empty where ends <= starts; runs disjoint, as a group-sorted
+    page gives them). Returns (present [G], count
     [G], None).
 
     On CPU tensors the plain version; on CUDA tensors the kernel."""
@@ -527,27 +528,26 @@ def hll_registers(values: torch.Tensor, live: torch.Tensor, *,
     present = torch.empty(groups, dtype=torch.float64, device=dev)
     count = torch.empty(groups, dtype=torch.int64, device=dev)
     lib = native.load("hll")
+    # the cluster tables (direct) or the group lists, counters and piece
+    # tables (sorted) of csrc/hll.cu
+    scratch = torch.empty(lib.hll_scratch_words(n, bins if direct else 0),
+                          dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         if direct:
             codes = codes.contiguous()
-            regs = torch.zeros((bins, _HLL_M), dtype=torch.int32, device=dev)
+            regs = torch.empty((bins, _HLL_M), dtype=torch.int32, device=dev)
             rc = lib.hll_direct(
                 ctypes.c_void_p(values.data_ptr()),
                 _DTYPE_CODES[values.dtype], ctypes.c_void_p(codes.data_ptr()),
                 ctypes.c_void_p(live.data_ptr()), n, bins,
+                ctypes.c_void_p(scratch.data_ptr()),
                 ctypes.c_void_p(regs.data_ptr()),
                 ctypes.c_void_p(present.data_ptr()),
                 ctypes.c_void_p(count.data_ptr()), stream)
         else:
             regs = None
             starts, ends = starts.contiguous(), ends.contiguous()
-            # the group lists, their lengths and the multi-piece groups'
-            # registers (csrc/hll.cu hll_sorted)
-            multi = n // HLL_PIECE + 1
-            scratch = torch.zeros(n // (HLL_SMALL_MAX + 1) + 1 + multi + 2
-                                  + multi * _HLL_M, dtype=torch.int32,
-                                  device=dev)
             rc = lib.hll_sorted(
                 ctypes.c_void_p(values.data_ptr()),
                 _DTYPE_CODES[values.dtype], ctypes.c_void_p(live.data_ptr()),

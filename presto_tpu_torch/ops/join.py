@@ -48,11 +48,6 @@ from presto_tpu_torch.types import BOOLEAN
 #: flagging each matched build row
 WINDOW, FIRST, LAST, ALL = 0, 1, 2, 3
 
-#: rows of the counts handled by one block of join_expand's scan
-#: (csrc/join.cu JE_TILE)
-EXPAND_TILE = 2048
-
-
 def _aligned_keys(probe: Page, build: Page, probe_fields, build_fields):
     """Pull key columns, aligning string dictionaries across sides."""
     pcols, bcols = [], []
@@ -233,7 +228,8 @@ def join_expand(counts: torch.Tensor, wcnt: torch.Tensor, lo: torch.Tensor,
     see an overflow.
 
     On CPU tensors the plain version; on CUDA tensors the kernel, whose
-    prefix sum is its own block scan."""
+    prefix sum and slot layout take scratch of the size its library's
+    `join_expand_scratch_words` gives."""
     dev = counts.device
     for t in (counts, wcnt, lo, order):
         if t.dtype != torch.int64 or t.dim() != 1 or t.device != dev:
@@ -252,14 +248,13 @@ def join_expand(counts: torch.Tensor, wcnt: torch.Tensor, lo: torch.Tensor,
     pptr, pdt = lane_arrays(pvals)
     bptr, bdt = lane_arrays(bvals)
     n = counts.shape[0]
-    cum = torch.empty(n, dtype=torch.int64, device=dev)
-    blocks = torch.empty(max((n + EXPAND_TILE - 1) // EXPAND_TILE, 1),
-                         dtype=torch.int64, device=dev)
+    lib = native.load("join")
+    scratch = torch.empty(lib.join_expand_scratch_words(n, out_capacity),
+                          dtype=torch.int64, device=dev)
     total = torch.empty((), dtype=torch.int64, device=dev)
     pidx = torch.empty(out_capacity, dtype=torch.int64, device=dev)
     bidx = torch.empty(out_capacity, dtype=torch.int64, device=dev)
     bvalid = torch.empty(out_capacity, dtype=torch.bool, device=dev)
-    lib = native.load("join")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.join_expand(
@@ -267,8 +262,7 @@ def join_expand(counts: torch.Tensor, wcnt: torch.Tensor, lo: torch.Tensor,
             ctypes.c_void_p(wcnt.data_ptr()), ctypes.c_void_p(lo.data_ptr()),
             n, ctypes.c_void_p(order.data_ptr()), order.shape[0],
             pptr, pdt, bptr, bdt, len(pvals), out_capacity,
-            ctypes.c_void_p(cum.data_ptr()),
-            ctypes.c_void_p(blocks.data_ptr()),
+            ctypes.c_void_p(scratch.data_ptr()),
             ctypes.c_void_p(total.data_ptr()),
             ctypes.c_void_p(pidx.data_ptr()),
             ctypes.c_void_p(bidx.data_ptr()),

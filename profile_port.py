@@ -61,10 +61,11 @@ def _busy_us(intervals) -> float:
     return total
 
 
-#: a kernel's definition: `__global__`, `void` and its name, with a
-#: `__launch_bounds__(...)` before or after `void`
-_KERNEL = re.compile(r"__global__\s+(?:__launch_bounds__\([^)]*\)\s+)?void"
-                     r"\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+#: a kernel's definition: `__global__`, `void` and its name, with
+#: attributes such as `__launch_bounds__(...)` or `__cluster_dims__(...)`
+#: before or after `void`
+_KERNEL = re.compile(r"__global__\s+(?:__\w+__\([^)]*\)\s+)*void"
+                     r"\s+(?:__\w+__\([^)]*\)\s+)*(\w+)\s*\(")
 
 
 def _hand_written() -> dict:

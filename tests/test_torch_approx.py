@@ -253,14 +253,18 @@ def test_hll_registers_direct_plain_matches_jax_ranks(bins):
     np.testing.assert_array_equal(p_count.numpy(), count)
 
 
-def test_hll_registers_sorted_plain_matches_jax_ranks():
+@pytest.mark.parametrize("edge", [PA.HLL_SMALL_MAX, PA.HLL_SMALL_MAX + 1,
+                                  PA.HLL_PIECE, PA.HLL_PIECE + 1])
+def test_hll_registers_sorted_plain_matches_jax_ranks(edge):
     """Runs of 1 row, of up to 32 rows (one thread each in K12), of
-    hundreds and of more than a piece (K12's blocks), an empty run, and
-    runs past the group count (ends == starts)."""
+    hundreds (a warp) and of more than a piece (K12's blocks), an empty
+    run, runs past the group count (ends == starts), and three runs at an
+    edge of K12's tiers."""
     rng = np.random.default_rng(9)
     lengths = np.concatenate([
         np.ones(3000, np.int64), rng.integers(2, 33, 500),
-        rng.integers(33, 900, 40), [0], [PA.HLL_PIECE * 2 + 5]])
+        rng.integers(33, 900, 40), [0], [PA.HLL_PIECE * 2 + 5],
+        [edge] * 3])
     rng.shuffle(lengths)
     n = int(lengths.sum())
     v, live = _k12_inputs(rng, n + 100)

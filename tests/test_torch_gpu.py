@@ -463,6 +463,74 @@ def test_join_expand_kernel_matches_plain(cuda, out_cap, left):
         _same(g, p)
 
 
+def _expand_case(rng, case):
+    """(counts, wcnt, lo, order, pvals, bvals) of one K6 card case: a
+    probe side of 2^20 rows, one with 2^20 pairs and about 1% with 1-3
+    (skewed) or none with any (all_zero), a few LEFT null extensions;
+    or 200,000 probe rows over two key lanes, int32 codes against int64
+    keys and float64 keys with NaN, +-0.0 and subnormals (mixed_lanes)."""
+    if case in ("skewed", "all_zero"):
+        n, nb = 1 << 20, 1 << 21
+        wc, lo = np.zeros(n, np.int64), np.zeros(n, np.int64)
+        if case == "skewed":
+            some = rng.random(n) < 0.01
+            wc = np.where(some, rng.integers(1, 4, n), 0)
+            lo = np.where(some, rng.integers(0, nb - 4, n), 0)
+            wc[n // 3], lo[n // 3] = 1 << 20, nb // 4
+        counts = np.where(rng.random(n) < 0.002, np.maximum(wc, 1), wc)
+        pvals = [torch.from_numpy(rng.integers(0, 4, n))]
+        bvals = [torch.from_numpy(rng.integers(0, 4, nb))]
+    else:
+        n, nb = 200_000, 150_000
+        wc = rng.integers(0, 6, n)
+        counts = np.where(rng.random(n) < 0.1, np.maximum(wc, 1), wc)
+        lo = rng.integers(-2, nb + 2, n)
+        special = np.array([0.0, -0.0, 1e-310, -1e-310, np.nan, 1.5, 2.5])
+        pvals = [torch.from_numpy(rng.choice(special, n)),
+                 torch.from_numpy(rng.integers(0, 3, n).astype(np.int32))]
+        bvals = [torch.from_numpy(rng.choice(special, nb)),
+                 torch.from_numpy(rng.integers(0, 3, nb))]
+    order = rng.permutation(nb)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x))
+                 for x in (counts, wc, lo, order)) + (pvals, bvals)
+
+
+@pytest.mark.parametrize("cap_vs_total", ["below", "at", "above"])
+@pytest.mark.parametrize("case", ["skewed", "all_zero", "mixed_lanes"])
+def test_join_expand_cases_match_plain_and_repeat(cuda, case, cap_vs_total):
+    """K6 on skewed and all-zero probe sides and on mixed key lanes, at a
+    capacity below, at and above the total: every output exactly the
+    plain version's, two launches equal, one launch a call."""
+    rng = np.random.default_rng(48)
+    counts, wcnt, lo, order, pvals, bvals = _expand_case(rng, case)
+    total = int(counts.sum())
+    out_cap = {"below": max(total // 2, 1), "at": max(total, 1),
+               "above": total + 3001}[cap_vs_total]
+    plain = J.join_expand(counts, wcnt, lo, order, pvals, bvals, out_cap)
+    on = [t.to(cuda) for t in (counts, wcnt, lo, order)]
+    pv, bv = [v.to(cuda) for v in pvals], [v.to(cuda) for v in bvals]
+    before = J.join_expand.launches
+    got = J.join_expand(*on, pv, bv, out_cap)
+    again = J.join_expand(*on, pv, bv, out_cap)
+    assert J.join_expand.launches == before + 2
+    assert int(got[3]) == total
+    for g, a, p in zip(got, again, plain):
+        _same(g, p)
+        _same(a, p)
+
+
+def test_join_expand_no_probe_rows(cuda):
+    """n = 0: a total of 0 and every slot dead (0, 0, False)."""
+    z = torch.zeros(0, dtype=torch.int64, device=cuda)
+    order = torch.arange(300, dtype=torch.int64, device=cuda)
+    pidx, bidx, bvalid, total = J.join_expand(
+        z, z, z, order, [z], [order], 5000)
+    torch.cuda.synchronize()
+    assert int(total) == 0
+    assert not bool(pidx.any()) and not bool(bidx.any())
+    assert not bool(bvalid.any())
+
+
 def test_subnormal_keys_hash_and_probe_as_zero(cuda):
     v = np.array([1e-310, -1e-310, 0.0, -0.0, 2.5, 1e-300])
     col = C.Column.from_numpy(v, T.DOUBLE, device="cpu")
@@ -1253,6 +1321,77 @@ def test_hll_registers_sorted_kernel_matches_plain(cuda, dtype):
     assert A.hll_registers.launches == before + 1
     _same(got[0], plain[0])
     _same(got[1], plain[1])
+
+
+def _hll_same_twice(cuda, vals, live, **mode):
+    """K12 on the card, launched twice, against the plain version on the
+    CPU: present, count and (direct mode) registers bit for bit."""
+    plain = A.hll_registers(vals, live, **mode)
+    on = {k: (v.to(cuda) if isinstance(v, torch.Tensor) else v)
+          for k, v in mode.items()}
+    before = A.hll_registers.launches
+    got = A.hll_registers(vals.to(cuda), live.to(cuda), **on)
+    again = A.hll_registers(vals.to(cuda), live.to(cuda), **on)
+    torch.cuda.synchronize()
+    assert A.hll_registers.launches == before + 2
+    for g, a, p in zip(got, again, plain):
+        assert (g is None) == (p is None)
+        if p is not None:
+            _same(g, p)
+            _same(a, p)
+
+
+@pytest.mark.parametrize("bins", [1, 12])
+def test_hll_registers_direct_one_value(cuda, bins):
+    """Every row one value, so every row of a bin hits one register."""
+    n = 1 << 22
+    vals = torch.full((n,), 123_456_789, dtype=torch.int64)
+    live = torch.ones(n, dtype=torch.bool)
+    codes = torch.from_numpy(
+        np.random.default_rng(74).integers(0, bins, n).astype(np.int32))
+    _hll_same_twice(cuda, vals, live, codes=codes, bins=bins)
+
+
+def _sorted_runs(lengths, pad=100):
+    """starts, ends of runs of the given lengths, then `pad` empty groups."""
+    ends = np.cumsum(lengths)
+    starts = ends - lengths
+    return (torch.from_numpy(np.concatenate([starts, np.full(pad, 3)])),
+            torch.from_numpy(np.concatenate([ends, np.full(pad, 3)])))
+
+
+@pytest.mark.parametrize("edge", [1, A.HLL_SMALL_MAX, A.HLL_SMALL_MAX + 1,
+                                  A.HLL_PIECE, A.HLL_PIECE + 1,
+                                  2 * A.HLL_PIECE + 3])
+def test_hll_registers_sorted_tier_edges(cuda, edge):
+    """Groups at each edge of K12's sorted-mode tiers (a thread up to
+    HLL_SMALL_MAX rows, a warp up to HLL_PIECE, block pieces past it),
+    among groups of other tiers, some with no live row."""
+    rng = np.random.default_rng(75 + edge)
+    count = max(2_000_000 // edge, 40) if edge > 1 else 50_000
+    lengths = np.concatenate([np.full(count, edge),
+                              rng.integers(1, 3 * A.HLL_SMALL_MAX, 300)])
+    rng.shuffle(lengths)
+    starts, ends = _sorted_runs(lengths)
+    n = int(lengths.sum()) + 17
+    vals = _hll_values(rng, n, torch.int64)
+    live = torch.from_numpy(rng.random(n) < 0.9)
+    for g in rng.choice(len(lengths), 25, replace=False):  # no live row
+        live[int(starts[g]):int(ends[g])] = False
+    _hll_same_twice(cuda, vals, live, starts=starts, ends=ends)
+
+
+@pytest.mark.parametrize("groups", [1, 7])
+def test_hll_registers_sorted_huge_groups(cuda, groups):
+    """a4's shape (seven groups of about 0.86M rows) and one group of 6M
+    rows: pieces dealt over the blocks, merged by the last one."""
+    rng = np.random.default_rng(76)
+    n = 6_001_215
+    lengths = np.bincount(rng.integers(0, groups, n), minlength=groups)
+    starts, ends = _sorted_runs(lengths, pad=1017)
+    vals = _hll_values(rng, 1 << 23, torch.int64)
+    live = torch.arange(1 << 23) < n
+    _hll_same_twice(cuda, vals, live, starts=starts, ends=ends)
 
 
 @pytest.mark.parametrize("p", [0.0, 0.25, 0.5, 0.9, 1.0])

@@ -11,7 +11,9 @@ PyTorch versions on CPU tensors), and compares:
   anti_exists with a NULL build key, duplicate build keys, string keys
   from two dictionaries;
 - ops/join.hash_join (K4 + K5 + K6): inner and left with duplicates and
-  NULL keys, overflow of the pair capacity, a cross join, semi and anti;
+  NULL keys, one build key of 2,000 duplicates among probe rows that
+  mostly match nothing, overflow of the pair capacity, a cross join, semi
+  and anti;
 - both joins on one long collision window (the port's hash patched to
   one value, so every key shares a window) and on an empty build side;
 - the kernels' plain versions against their formulas.
@@ -248,6 +250,32 @@ def test_hash_join_overflow_reports_the_true_total(jt):
     rp, pp, rb, pb = _join_sides(rng, dup=True, key_range=300)
     _out, total = _hash_both(rp, pp, rb, pb, (0,), (0,), 4096, jt)
     assert total > 4096
+
+
+@pytest.mark.parametrize("jt", ["inner", "left"])
+def test_hash_join_one_hot_build_key_matches_jax(jt):
+    """One build key with 2,000 duplicates, probed by three rows, among
+    probe rows that nearly all match nothing: the shape K6's merge path
+    balances (a few rows owning most pairs, most rows owning none or only
+    a LEFT null extension)."""
+    rng = np.random.default_rng(35)
+    nb, npr = 2400, 3000
+    bk = np.where(np.arange(nb) < 2000, 7, rng.integers(100, 400, nb))
+    rng.shuffle(bk)
+    pk = rng.integers(10_000, 20_000, npr)
+    pk[rng.choice(npr, 40, replace=False)] = rng.integers(100, 400, 40)
+    hot = rng.choice(npr, 3, replace=False)
+    pk[hot] = 7
+    p_null = rng.random(npr) < 0.02
+    p_null[hot] = False
+    probe = [("bigint", pk, p_null, None)]
+    build = [("bigint", bk, np.zeros(nb, bool), None),
+             ("integer", rng.integers(0, 9, nb).astype(np.int32),
+              np.zeros(nb, bool), None)]
+    rp, pp = _pages(probe, npr)
+    rb, pb = _pages(build, nb)
+    _out, total = _hash_both(rp, pp, rb, pb, (0,), (0,), 16384, jt)
+    assert total >= 6000
 
 
 def test_hash_join_cross_join_matches_jax():
