@@ -24,9 +24,11 @@ Phases, each fatal on failure, each printing its seconds:
      direct mode on a2's and a1's columns (their first values replaced by
      values whose hash has w = 2^k - 1) and on 8,388,608 rows of one
      value, and in sorted mode on 1.5M one-row groups, a3's 10,000 groups and
-     a4's seven groups of 0.86M rows, K13 segment_pick on a1's global
-     median and a3's 10,000 groups) at the shapes SF1 gives it on the main
-     path
+     a4's seven groups of 0.86M rows, K13 segment_select on phase 4e's
+     unsorted lanes: a1's l_quantity (global), a2's l_extendedprice over
+     its bins, a3's l_discount over 10,000 runs and a4's l_shipdate over
+     seven, a1's also against torch.kthvalue) at the shapes SF1 gives it
+     on the main path
      (K1-K3 on seeded numpy data; K4-K6 on q13's join of customer with
      orders, K6 also with the build side in key order, at half its
      capacity and on a skewed probe side with one row of 2^20 pairs; K7 on TPC-DS q51's largest window input and on orders
@@ -38,10 +40,10 @@ Phases, each fatal on failure, each printing its seconds:
      against its plain PyTorch version on the card (counts, indices,
      hashes, join pairs, flags, positions, min and max, limb sums and
      128-bit results and overflow flags, HyperLogLog registers, present
-     sums and counts, order statistics exact; float64 sums within 1e-9
-     relative, since the kernels sum in another order; K10's cast to
-     double within 1e-15, since torch divides by a scalar through its
-     reciprocal), and
+     sums and counts exact, order statistics bit for bit; float64 sums
+     within 1e-9 relative, since the kernels sum in another order; K10's
+     cast to double within 1e-15, since torch divides by a scalar
+     through its reciprocal), and
      timed with CUDA events beside the plain version, one PyTorch library
      call where one computes the same function (K2: a stable descending
      torch.sort of the flags, and torch.nonzero on a line of its own; K3:
@@ -1701,62 +1703,138 @@ def kernel_hll_registers(conn, dev, repeat) -> dict:
             "bound_by": "bytes", "library_ms": None}
 
 
-def kernel_segment_pick(conn, dev, repeat) -> dict:
-    """K13 at phase 4e's SF1 shapes: a1's global median of l_quantity
-    (6,001,215 sorted values in the 8,388,608-row page, one group; the
-    kernel line, with torch.kthvalue over the same sorted values as the
-    library call) and, on a line of its own, a3's 25th percentile of
-    l_discount over 10,000 groups (16,384 group slots)."""
+def same_bits(a, b) -> bool:
+    """Equal bit for bit (float64 compared as int64: NaN payloads and the
+    sign of zero count)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float64:
+        a, b = a.view(torch.int64), b.view(torch.int64)
+    return bool(torch.equal(a, b))
+
+
+def _runs_of(sorted_keys, total: int, g_cap: int):
+    """starts and ends of the runs of equal keys in sorted_keys[:total],
+    padded with empty runs at `total` to g_cap slots."""
+    import torch
+    _, counts = torch.unique_consecutive(sorted_keys[:total],
+                                         return_counts=True)
+    ends = torch.cumsum(counts, 0)
+    pad = torch.full((g_cap - len(counts),), total, dtype=torch.int64,
+                     device=sorted_keys.device)
+    return torch.cat([ends - counts, pad]), torch.cat([ends, pad])
+
+
+def segment_select_cases(conn, dev) -> list:
+    """K13's inputs as phase 4e's queries give them at SF1, each a dict
+    (case, vals, live, p, mode: the groups, bytes: what the kernel must
+    read and write): a1's l_quantity, global (one bin over the
+    8,388,608-row page); a2's l_extendedprice over the bins of
+    (l_returnflag, l_linestatus); a3's l_discount over the 10,000 l_suppkey
+    runs of the group-sorted page (16,384 group slots); a4's l_shipdate
+    over the seven l_linenumber runs (1,024 slots). The runs' rows are in
+    page order within each run, as the sorted path's stable sort leaves
+    them."""
     import torch
     from presto_tpu_torch.ops import aggregate as A
     from presto_tpu_torch.ops.keys import lex_perm
-    page = conn.table("lineitem").page(["l_quantity", "l_suppkey",
-                                        "l_discount"], device=dev)
-    qty, supp, disc = page.columns
-    n = int(page.num_rows)
-    live = page.row_valid()
-    sq = qty.values[lex_perm([(~live).to(torch.int8), qty.values])]
-    starts = torch.zeros(1, dtype=torch.int64, device=dev)
-    counts = torch.full((1,), n, dtype=torch.int64, device=dev)
-    for p in (0.0, 0.5, 1.0):
-        got = A.segment_pick(sq, starts, counts, p)
-        want = A._segment_pick_plain(sq, starts, counts, p)
-        if not (exact(got[0], want[0]) and exact(got[1], want[1])):
-            fail(f"segment_pick (global, p={p}) differs from the plain "
-                 f"version")
-    k = int(np.floor(0.5 * (n - 1))) + 1
-    if float(torch.kthvalue(sq[:n], k).values) != float(
-            A.segment_pick(sq, starts, counts, 0.5)[0][0]):
-        fail("segment_pick's global median differs from torch.kthvalue")
-    gid = torch.where(live, supp.values, 1 << 40)
-    perm = lex_perm([gid, disc.values])
-    sd = disc.values[perm]
-    g_cap = 16_384
-    cnt = torch.bincount(supp.values[live], minlength=g_cap)[:g_cap]
-    g_starts = torch.cumsum(cnt, 0) - cnt
-    a3 = (sd, g_starts, cnt, 0.25)
-    got, want = A.segment_pick(*a3), A._segment_pick_plain(*a3)
-    if not (exact(got[0], want[0]) and exact(got[1], want[1])):
-        fail("segment_pick (a3) differs from the plain version")
-    ms = cuda_time_ms(lambda: A.segment_pick(*a3), repeat)
-    plain_ms = cuda_time_ms(lambda: A._segment_pick_plain(*a3), repeat)
-    print(f"segment_pick (a3, {g_cap} groups): {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound "
-          f"{g_cap * 33 / HBM_BYTES_PER_S * 1e3:.5f} ms", flush=True)
-    args = (sq, starts, counts, 0.5)
-    # per group its start and count read, one value gathered, the value
-    # and its null flag written
-    return {"name": "segment_pick", "route": "cuda",
+    page = conn.table("lineitem").page(
+        ["l_quantity", "l_extendedprice", "l_discount", "l_shipdate",
+         "l_returnflag", "l_linestatus", "l_suppkey", "l_linenumber"],
+        device=dev)
+    qty, price, disc, ship, rf, ls, supp, lno = page.columns
+    cap, valid = page.capacity, page.row_valid()
+    total = int(page.num_rows)
+    cases = []
+
+    def add(case, vals, live, p, mode, rows, groups):
+        vals = A._kernel_values(vals)
+        size = vals.element_size()
+        # the codes are read where there is more than one bin
+        per_row = size + 1 + (4 if mode.get("bins", 0) > 1 else 0)
+        per_group = size + 1 + (16 if "starts" in mode else 0)
+        cases.append({"case": case, "vals": vals, "live": live, "p": p,
+                      "mode": mode,
+                      "bytes": rows * per_row + groups * per_group})
+
+    add("a1, global, l_quantity", qty.values, valid & ~qty.nulls, 0.5,
+        {"codes": torch.zeros(cap, dtype=torch.int32, device=dev),
+         "bins": 1}, cap, 1)
+    domains, prod = A._direct_domains(page, [4, 5])
+    codes = A._bin_codes([(c.values.to(torch.int32), c.nulls)
+                          for c in (rf, ls)], domains, cap, dev)
+    add(f"a2, direct, l_extendedprice over {prod} bins", price.values,
+        valid & ~price.nulls, 0.9, {"codes": codes, "bins": prod}, cap,
+        prod)
+    for name, key, col, p, g_cap in (
+            ("a3, sorted, l_discount over 10,000 runs", supp, disc, 0.25,
+             16_384),
+            ("a4, sorted, l_shipdate over 7 runs", lno, ship, 0.5, 1024)):
+        perm = lex_perm([(~valid).to(torch.int8) * 2
+                         + key.nulls.to(torch.int8), key.values])
+        starts, ends = _runs_of(key.values[perm], total, g_cap)
+        add(name, col.values[perm], (valid & ~col.nulls)[perm], p,
+            {"starts": starts, "ends": ends}, total, g_cap)
+    return cases
+
+
+def run_select_case(c, repeat) -> dict:
+    """One K13 case (segment_select_cases): two launches held bit for bit
+    against each other and the plain version (lex_perm, gather, pick: the
+    parent's chain, all in torch ops), timed beside it and the bound; a1's
+    result also held against torch.kthvalue over its live values, whose
+    time is the library call's."""
+    import torch
+    from presto_tpu_torch.ops import aggregate as A
+    vals, live, mode, p = c["vals"], c["live"], c["mode"], c["p"]
+
+    def kernel():
+        return A.segment_select(vals, live, p, **mode)
+
+    def plain():
+        return A._segment_select_plain(vals, live, p, mode.get("codes"),
+                                       mode.get("bins"), mode.get("starts"),
+                                       mode.get("ends"))
+
+    got, again, want = kernel(), kernel(), plain()
+    for g, a, w in zip(got, again, want):
+        if not (same_bits(g, w) and same_bits(g, a)):
+            fail(f"segment_select ({c['case']}) differs from the plain "
+                 f"version or between two launches")
+    row = {"case": c["case"], "max_abs_err": 0.0,
+           "ms": cuda_time_ms(kernel, repeat),
+           "plain_ms": cuda_time_ms(plain, max(repeat // 4, 2)),
+           "bound_ms": c["bytes"] / HBM_BYTES_PER_S * 1e3,
+           "library_ms": None}
+    if mode.get("bins") == 1:
+        lv = vals[live]
+        k = int(np.floor(p * (lv.shape[0] - 1))) + 1
+        if float(torch.kthvalue(lv, k).values) != float(got[0][0]):
+            fail(f"segment_select ({c['case']}) differs from torch.kthvalue")
+        row["library_ms"] = cuda_time_ms(lambda: torch.kthvalue(lv, k),
+                                         repeat)
+    return row
+
+
+def kernel_segment_select(conn, dev, repeat) -> dict:
+    """K13 at segment_select_cases' shapes, each printed on a line of its
+    own; the kernel line is a1's, with torch.kthvalue as the library
+    call."""
+    cases = [run_select_case(c, repeat)
+             for c in segment_select_cases(conn, dev)]
+    print("segment_select cases: " + json.dumps(cases), flush=True)
+    for r in cases:
+        print(f"segment_select {r['case']}: {r['ms']:.5f} ms, lex_perm "
+              f"chain (plain) {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms", flush=True)
+    line = cases[0]
+    return {"name": "segment_select", "route": "cuda",
             "source": "presto_tpu_torch/csrc/percentile.cu",
             "replaces": "presto_tpu/ops/aggregate.py:392",
-            "max_abs_err": 0.0,
-            "ms": cuda_time_ms(lambda: A.segment_pick(*args), repeat),
-            "plain_ms": cuda_time_ms(lambda: A._segment_pick_plain(*args),
-                                     repeat),
-            "bound_ms": 33 / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes",
-            "library_ms": cuda_time_ms(lambda: torch.kthvalue(sq[:n], k),
-                                       repeat)}
+            "max_abs_err": 0.0, "ms": line["ms"],
+            "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
+            "bound_by": "bytes", "library_ms": line["library_ms"]}
 
 
 def capture_windows(engine, sql: str) -> list:
@@ -3013,7 +3091,7 @@ def approx_path(conn, counters) -> dict:
     gpu = LocalEngine(conn)
     rows, walls, per_query, launches = _run_queries(
         gpu, {name: (sql, False) for name, sql in APPROX_QUERIES.items()},
-        counters, "approx path", ["hll_registers", "segment_pick"])
+        counters, "approx path", ["hll_registers", "segment_select"])
     cpu = LocalEngine(conn, device="cpu")
     names = [k.__name__ for k in counters]
     for name, sql in APPROX_QUERIES.items():
@@ -3057,7 +3135,7 @@ def approx_phase(counters) -> None:
     conn = TpchConnector(SQLITE_SF)
     rows, walls, _per_query, launches = _run_queries(
         LocalEngine(conn), {n: (q, False) for n, q in queries.items()},
-        counters, "approx phase", ["hll_registers", "segment_pick"])
+        counters, "approx phase", ["hll_registers", "segment_select"])
     cpu = LocalEngine(conn, device="cpu")
     for name, sql in queries.items():
         want = sorted(cpu.execute_sql(sql))
@@ -3189,7 +3267,7 @@ def main() -> int:
     from presto_tpu_torch.data.int128 import int128_op
     from presto_tpu_torch.exec.engine import LocalEngine
     from presto_tpu_torch.ops.aggregate import direct_agg, hll_registers, \
-        segment_pick
+        segment_select
     from presto_tpu_torch.ops.join import join_expand, join_probe
     from presto_tpu_torch.ops.keys import hash_columns, key_change_flags
     from presto_tpu_torch.connectors.tpch import nested_orders
@@ -3256,7 +3334,7 @@ def main() -> int:
               kernel_segment_sum128(rng, dev, REPEAT),
               kernel_unnest_expand(nested, dev, REPEAT),
               kernel_hll_registers(conn, dev, REPEAT),
-              kernel_segment_pick(conn, dev, REPEAT)]
+              kernel_segment_select(conn, dev, REPEAT)]
     del q51_calls
     torch_op_rows(conn, ds_conn, dec_conn, dev, REPEAT)
     torch.cuda.synchronize()
@@ -3304,7 +3382,7 @@ def main() -> int:
           f"launches {unnest}; torch-op stage calls {calls.counts}",
           flush=True)
     del nested, dec_conn
-    approx_counters = [hll_registers, segment_pick] + counters
+    approx_counters = [hll_registers, segment_select] + counters
     calls.reset()
     t0 = time.perf_counter()
     approx = approx_path(conn, approx_counters + mode_counts)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """K1 direct_agg, K5 join_probe, K6 join_expand, K7 segmented_scan (and
-window_bounds), K8 key_change_flags, K9 window_frame, K11 unnest_expand
-and K12 hll_registers against another checkout's kernels, in one process
-on one GPU.
+window_bounds), K8 key_change_flags, K9 window_frame, K11 unnest_expand,
+K12 hll_registers and K13 segment_select against another checkout's
+kernels, in one process on one GPU.
 
     python3 kernel_ab.py OTHER [--out ab.json] [--only KERNEL,...]
 
@@ -14,8 +14,9 @@ launch OTHER's kernels, built by OTHER's native.py from OTHER's csrc/ into
 OTHER's build directory. chip_smoke.py's phase-3 shapes of the kernels
 (direct_agg_cases, direct_agg_sum128_case, join_probe_cases,
 join_expand_cases, seg_scan_cases, key_change_cases, window_frame_cases,
-unnest_expand_cases and hll_registers_cases; TPC-H SF1 for the joins',
-K7's, K8's, K9's and K12's, TPC-DS SF1 for K7's q51 inputs, the SF1
+unnest_expand_cases, hll_registers_cases and segment_select_cases; TPC-H
+SF1 for the joins', K7's, K8's, K9's, K12's and K13's, TPC-DS SF1 for
+K7's q51 inputs, the SF1
 nested orders for K11's) are built once; each is held against its plain
 version under both checkouts (run_direct_agg_case, run_join_probe_case,
 run_join_expand_case, run_scan_case, run_key_change_case,
@@ -24,9 +25,14 @@ plain versions and library calls), then timed with CUDA events
 (chip_smoke.cuda_time_ms, chip_smoke.REPEAT calls) in turns: OTHER, this
 checkout, this checkout, OTHER. Where OTHER's ops/scan.py has no
 window_bounds, its bounds case is the four segmented_scan launches and two
-shifts a window took before. --only limits the run to the named kernels
-(direct_agg, join_probe, join_expand, segmented_scan, key_change_flags,
-window_frame, unnest_expand, hll_registers). --trace also runs each case once per checkout under
+shifts a window took before. Where OTHER's ops/aggregate.py has no
+segment_select, its K13 case is the whole approx_percentile step as OTHER
+takes it (parent_chain: its lex_perm of the page by group, NULL last and
+key, the gather, and its segment_pick; the per-group counts, which OTHER
+takes from K1 or K3, are made outside the timed call). --only limits the
+run to the named kernels (direct_agg, join_probe, join_expand,
+segmented_scan, key_change_flags, window_frame, unnest_expand,
+hll_registers, segment_select). --trace also runs each case once per checkout under
 torch.profiler and reports the device time of each kernel and copy the
 call launches (microseconds, by name). Prints per case the four times and writes them, with the
 card's name and power limit, as JSON to --out. Fails where there is no
@@ -91,7 +97,11 @@ def other_modules(root: Path):
         direct_agg=wrap(agg.direct_agg),
         _direct_agg_plain=agg._direct_agg_plain, WANT_SUM=agg.WANT_SUM,
         WANT_MINMAX=agg.WANT_MINMAX, WANT_SUM128=agg.WANT_SUM128,
-        hll_registers=wrap(agg.hll_registers))
+        hll_registers=wrap(agg.hll_registers),
+        lex_perm=keys.lex_perm, flush_subnormal=keys.flush_subnormal)
+    for name in ("segment_select", "segment_pick"):
+        if hasattr(agg, name):
+            setattr(A, name, wrap(getattr(agg, name)))
     J = types.SimpleNamespace(join_probe=wrap(join.join_probe),
                               _join_probe_plain=join._join_probe_plain,
                               join_expand=wrap(join.join_expand))
@@ -102,17 +112,65 @@ def other_modules(root: Path):
     W = types.SimpleNamespace(window_frame=wrap(window.window_frame))
     U = types.SimpleNamespace(unnest_expand=wrap(unnest.unnest_expand))
     built = native.build(["direct_agg", "join", "seg_scan", "keys",
-                          "window", "unnest", "hll"])
+                          "window", "unnest", "hll", "percentile"])
     return A, J, S, K, W, U, built
 
 
 KERNELS = ("direct_agg", "join_probe", "join_expand", "segmented_scan",
            "key_change_flags", "window_frame", "unnest_expand",
-           "hll_registers")
+           "hll_registers", "segment_select")
 LIBS = {"direct_agg": "direct_agg", "join_probe": "join",
         "join_expand": "join", "segmented_scan": "seg_scan",
         "key_change_flags": "keys", "window_frame": "window",
-        "unnest_expand": "unnest", "hll_registers": "hll"}
+        "unnest_expand": "unnest", "hll_registers": "hll",
+        "segment_select": "percentile"}
+
+
+def parent_chain(c, m):
+    """A call of K13's case c as a checkout without segment_select takes
+    the step: m.lex_perm by (group, NULL last, key), the gather and
+    m.segment_pick over the group starts and live counts (made here)."""
+    import torch
+    vals, live, mode, p = c["vals"], c["live"], c["mode"], c["p"]
+    ov = m.flush_subnormal(vals) if vals.dtype == torch.float64 else vals
+    if "codes" in mode:
+        codes, bins = mode["codes"], mode["bins"]
+        lanes = [torch.where(live, codes, bins), ov]
+        cnt = torch.bincount(codes[live].to(torch.int64), minlength=bins)
+        starts = torch.cumsum(cnt, 0) - cnt
+    else:
+        # gid as the sorted path forms it: the rows of the g-th run carry
+        # g + 1, rows past the last run the last run's
+        starts, ends = mode["starts"], mode["ends"]
+        n = vals.shape[0]
+        first = starts[ends > starts]
+        marks = torch.zeros(n + 1, dtype=torch.int64, device=vals.device)
+        marks.index_add_(0, first, torch.ones_like(first))
+        gid = torch.cumsum(marks[:n], 0)
+        lanes = [gid, (~live).to(torch.int8), ov]
+        cum = torch.cat([torch.zeros(1, dtype=torch.int64,
+                                     device=vals.device),
+                         torch.cumsum(live.to(torch.int64), 0)])
+        cnt = cum[ends] - cum[starts]
+    return lambda: m.segment_pick(vals[m.lex_perm(lanes)], starts, cnt, p)
+
+
+def run_parent_chain(c, repeat, m) -> dict:
+    """parent_chain's result held against this checkout's plain version:
+    the NULL flags and every non-NULL value, bit for bit."""
+    from presto_tpu_torch.ops import aggregate as A
+    got = parent_chain(c, m)()
+    want = A._segment_select_plain(c["vals"], c["live"], c["p"],
+                                   c["mode"].get("codes"),
+                                   c["mode"].get("bins"),
+                                   c["mode"].get("starts"),
+                                   c["mode"].get("ends"))
+    keep = ~want[1]
+    if not (CS.same_bits(got[1], want[1])
+            and CS.same_bits(got[0][keep], want[0][keep])):
+        CS.fail(f"the parent's K13 chain ({c['case']}) differs from the "
+                f"plain version")
+    return {}
 
 
 def _calls(kind, c, m):
@@ -136,6 +194,11 @@ def _calls(kind, c, m):
         return lambda: m.join_expand(*c["args"])
     if kind == "hll_registers":
         return lambda: m.hll_registers(c["vals"], c["live"], **c["mode"])
+    if kind == "segment_select":
+        if not hasattr(m, "segment_select"):
+            return parent_chain(c, m)
+        return lambda: m.segment_select(c["vals"], c["live"], c["p"],
+                                        **c["mode"])
     if c["op"] == "bounds":
         part, peer = c["part_start"], c["peer_start"]
         if hasattr(m, "window_bounds"):
@@ -231,6 +294,15 @@ def main() -> int:
     if "hll_registers" in only:
         runs.append(("hll_registers", CS.hll_registers_cases(conn, dev),
                      CS.run_hll_case, (oA, A)))
+    if "segment_select" in only:
+        def run_select(c, repeat, m):
+            if m is A:
+                return CS.run_select_case(c, repeat)
+            if hasattr(m, "segment_select"):
+                return {}
+            return run_parent_chain(c, repeat, m)
+        runs.append(("segment_select", CS.segment_select_cases(conn, dev),
+                     run_select, (oA, A)))
     rows = []
     for kind, cases, run, mods in runs:
         for c in cases:

@@ -71,8 +71,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "hll_direct": [_P, _I32, _P, _P, _I64, _I32, _P, _P, _P, _P, _P],
         "hll_sorted": [_P, _I32, _P, _I64, _P, _P, _I64, _P, _P, _P, _P]},
     "percentile": {
-        "segment_pick": [_P, _I32, _I64, _P, _P, _I64, ctypes.c_double, _P,
-                         _P, _P]},
+        "segment_select": [_P, _I32, _P, _I64, _P, _I32, _P, _P, _I64,
+                           ctypes.c_double, _P, _P, _P, _P]},
 }
 
 #: entry points that return the int64 words of scratch a launch takes, so
@@ -87,6 +87,7 @@ SCRATCH_SIGNATURES: Dict[str, Dict[str, list]] = {
     "window": {"window_frame_scratch_words": [_P, _I64]},
     "unnest": {"unnest_expand_scratch_words": [_I64, _I64]},
     "hll": {"hll_scratch_words": [_I64, _I32]},
+    "percentile": {"segment_select_scratch_words": [_I64, _I64, _I32]},
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

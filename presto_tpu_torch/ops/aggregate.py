@@ -22,9 +22,10 @@ DECIMAL(p>18) inputs are exact lexicographic reductions over the
 normalized limbs, in torch ops. approx_distinct takes each group's
 HyperLogLog registers with the hand-written `hll_registers` kernel
 (csrc/hll.cu, K12; by bin on the direct path, by group run on the sorted
-path) and the JAX package's estimate; approx_percentile sorts each group's
-values (`lex_perm`) and picks the order statistic with the hand-written
-`segment_pick` kernel (csrc/percentile.cu, K13). Both raise
+path) and the JAX package's estimate; approx_percentile selects each
+group's order statistic from the unsorted values with the hand-written
+`segment_select` kernel (csrc/percentile.cu, K13; by bin on the direct
+path, by group run on the sorted path), with no sort. Both raise
 NotImplementedError over a DECIMAL(38) input, as the JAX package does. The
 distributed merges sum128_merge/avg128_merge raise NotImplementedError: a
 later slice.
@@ -565,11 +566,41 @@ hll_registers.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K13: segment_pick (approx_percentile)
+# K13: segment_select (approx_percentile)
 # ---------------------------------------------------------------------------
 
+#: K13's schedule by group length (csrc/percentile.cu): a group run of at
+#: most SELECT_WARP_MAX rows takes one warp; a longer one, and every bin of
+#: the direct path, the device-wide sample select, whose candidate sets of
+#: at most SELECT_BLOCK_MAX elements a block finishes; the tests size their
+#: groups by them
+SELECT_WARP_MAX = 1024
+SELECT_BLOCK_MAX = 8192
+
+_I64_MAX = torch.iinfo(torch.int64).max
+
+
+def _select_keys(values: torch.Tensor) -> torch.Tensor:
+    """int64 lane whose ascending order is K13's key order, the order of
+    `_orderable_values`: integers as they are; float64 with subnormals
+    and -0.0 as 0.0 and every NaN as one key above +inf, the IEEE bits
+    flipped into signed integer order (the same on the CPU and the card,
+    whatever the sort does with NaN payloads and signed zeros)."""
+    if values.dtype != torch.float64:
+        return values.to(torch.int64)
+    from presto_tpu_torch.ops.keys import flush_subnormal
+    v = flush_subnormal(values)
+    bits = v.view(torch.int64)
+    k = torch.where(bits < 0, bits ^ _I64_MAX, bits)
+    k = torch.where(v == 0, 0, k)
+    return torch.where(torch.isnan(values), _I64_MAX, k)
+
+
 def _segment_pick_plain(values, starts, counts, p):
-    """Plain PyTorch version of the segment_pick kernel."""
+    """Over `values` sorted within each group, non-null values first, group
+    g takes values[starts[g] + floor(p * max(counts[g] - 1, 0))] (in
+    float64, clipped to the page), as presto_tpu/ops/aggregate.py
+    :392-414 and :737-760 take it. Returns (picked, counts == 0)."""
     n = values.shape[0]
     idx = starts + torch.floor(
         p * torch.clamp(counts - 1, min=0).to(torch.float64)
@@ -580,52 +611,113 @@ def _segment_pick_plain(values, starts, counts, p):
     return picked, counts == 0
 
 
-def segment_pick(values: torch.Tensor, starts: torch.Tensor,
-                 counts: torch.Tensor, p: float):
-    """The order statistic of approx_percentile per group (kernel K13,
-    csrc/percentile.cu): over `values` sorted within each group, non-null
-    values first, group g takes values[starts[g] + floor(p * max(counts[g]
-    - 1, 0))] (in float64, clipped to the page), as
-    presto_tpu/ops/aggregate.py :392-414 and :737-760 take it. Returns
-    (picked [G] of values' dtype, null [G] bool: counts == 0). Values are
-    float64, int64 or int32; starts and counts int64.
+def _segment_select_plain(values, live, p, codes, bins, starts, ends):
+    """Plain PyTorch version of the segment_select kernel: the live rows
+    sorted stably by (group, key) with `lex_perm`, then
+    `_segment_pick_plain`; 0 where a group is NULL."""
+    from presto_tpu_torch.ops.keys import lex_perm
+    dev = values.device
+    if codes is not None:
+        groups = bins
+        rows = torch.arange(values.shape[0], dtype=torch.int64, device=dev)
+        gid = codes.to(torch.int64)
+        keep = live & (gid >= 0) & (gid < bins)
+    else:
+        n, groups = values.shape[0], starts.shape[0]
+        s = starts.clamp(0, n)
+        lengths = torch.maximum(ends.clamp(0, n), s) - s
+        gid = torch.repeat_interleave(
+            torch.arange(groups, dtype=torch.int64, device=dev), lengths)
+        offsets = torch.cumsum(lengths, 0) - lengths
+        rows = (torch.repeat_interleave(s - offsets, lengths)
+                + torch.arange(gid.shape[0], dtype=torch.int64, device=dev))
+        keep = live[rows]
+    rows, gid = rows[keep], gid[keep]
+    perm = lex_perm([gid, _select_keys(values[rows])])
+    counts = torch.bincount(gid, minlength=groups)
+    picked, null = _segment_pick_plain(values[rows][perm],
+                                       torch.cumsum(counts, 0) - counts,
+                                       counts, p)
+    return torch.where(null, torch.zeros_like(picked), picked), null
+
+
+def segment_select(values: torch.Tensor, live: torch.Tensor, p: float, *,
+                   codes: Optional[torch.Tensor] = None,
+                   bins: Optional[int] = None,
+                   starts: Optional[torch.Tensor] = None,
+                   ends: Optional[torch.Tensor] = None):
+    """approx_percentile's order statistic per group, selected from the
+    unsorted `values` (kernel K13, csrc/percentile.cu), as
+    presto_tpu/ops/aggregate.py :392-414 and :737-760 sort and take it: for
+    a group of n rows where `live`, the value of the row that a stable
+    ascending sort by the orderable key (`_select_keys`) puts at position
+    floor(p * max(n - 1, 0)), p clipped to [0, 1], in float64. Values are
+    float64, int64 or int32.
+
+    Direct mode (`codes`, `bins`): the group of row i is its bin codes[i]
+    (int32 in [0, bins), bins <= 64). Sorted mode (`starts`, `ends`):
+    group g is the row run [starts[g], ends[g]) (empty where ends <=
+    starts; runs disjoint, as a group-sorted page gives them). Returns
+    (picked [G] of values' dtype, 0 where NULL; null [G] bool: n == 0).
 
     On CPU tensors the plain version; on CUDA tensors the kernel."""
+    direct = codes is not None
+    if direct == (starts is not None) or (direct and bins is None) or (
+            not direct and ends is None):
+        raise ValueError("segment_select: codes and bins, or starts and "
+                         "ends")
     if values.dim() != 1 or values.dtype not in _DTYPE_CODES:
-        raise TypeError(f"segment_pick: values must be 1-d float64, int64 "
+        raise TypeError(f"segment_select: values must be 1-d float64, int64 "
                         f"or int32, got {values.dtype}")
-    dev = values.device
-    if starts.dtype != torch.int64 or counts.dtype != torch.int64 \
-            or starts.shape != counts.shape or starts.dim() != 1 \
-            or starts.device != dev or counts.device != dev:
-        raise TypeError("segment_pick: starts/counts must be 1-d int64 of "
+    n, dev = values.shape[0], values.device
+    if live.dtype != torch.bool or live.shape != (n,) or live.device != dev:
+        raise TypeError("segment_select: live must be bool like values")
+    if direct:
+        if not 1 <= bins <= _DIRECT_MAX_BINS or codes.dtype != torch.int32 \
+                or codes.shape != (n,) or codes.device != dev:
+            raise TypeError(f"segment_select: codes must be int32 like "
+                            f"values, 1 <= bins <= {_DIRECT_MAX_BINS}")
+    elif starts.dtype != torch.int64 or ends.dtype != torch.int64 \
+            or starts.shape != ends.shape or starts.dim() != 1 \
+            or starts.device != dev or ends.device != dev:
+        raise TypeError("segment_select: starts/ends must be 1-d int64 of "
                         "one length, on values' device")
-    p = float(p)
+    p = min(max(float(p), 0.0), 1.0)
     if dev.type == "cpu":
-        return _segment_pick_plain(values, starts, counts, p)
+        return _segment_select_plain(values, live, p, codes, bins, starts,
+                                     ends)
     if dev.type != "cuda":
-        raise RuntimeError(f"segment_pick: no kernel for {dev}")
+        raise RuntimeError(f"segment_select: no kernel for {dev}")
+    if n >= 1 << 31:
+        raise ValueError(f"segment_select: {n} rows >= 2^31")
     from presto_tpu_torch import native
-    values = values.contiguous()
-    starts, counts = starts.contiguous(), counts.contiguous()
-    g = starts.shape[0]
-    picked = torch.empty(g, dtype=values.dtype, device=dev)
-    nulls = torch.empty(g, dtype=torch.bool, device=dev)
+    values, live = values.contiguous(), live.contiguous()
+    groups = bins if direct else starts.shape[0]
+    picked = torch.empty(groups, dtype=values.dtype, device=dev)
+    nulls = torch.empty(groups, dtype=torch.bool, device=dev)
     lib = native.load("percentile")
+    # group states, lists and the two candidate buffers of csrc/percentile.cu
+    scratch = torch.empty(lib.segment_select_scratch_words(
+        n, groups, bins if direct else 0), dtype=torch.int64, device=dev)
+    if direct:
+        codes = codes.contiguous()
+    else:
+        starts, ends = starts.contiguous(), ends.contiguous()
+
+    def ptr(t):
+        return ctypes.c_void_p(None if t is None else t.data_ptr())
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.segment_pick(
-            ctypes.c_void_p(values.data_ptr()), _DTYPE_CODES[values.dtype],
-            values.shape[0], ctypes.c_void_p(starts.data_ptr()),
-            ctypes.c_void_p(counts.data_ptr()), g, p,
-            ctypes.c_void_p(picked.data_ptr()),
-            ctypes.c_void_p(nulls.data_ptr()), ctypes.c_void_p(stream))
-    native.check(rc, "segment_pick", "percentile")
-    segment_pick.launches += 1
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        rc = lib.segment_select(
+            ptr(values), _DTYPE_CODES[values.dtype], ptr(live), n,
+            ptr(codes), bins if direct else 0, ptr(starts), ptr(ends),
+            groups, p, ptr(scratch), ptr(picked), ptr(nulls), stream)
+    native.check(rc, "segment_select", "percentile")
+    segment_select.launches += 1
     return picked, nulls
 
 
-segment_pick.launches = 0
+segment_select.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -810,16 +902,14 @@ def _direct_grouped_aggregate(page: Page, group_fields: Sequence[int],
                                               torch.round(est)),
                                   t, false_w))
                 continue
-            # approx_percentile (:392-414): dead rows sort to bin `prod`,
-            # each bin's live values follow in SQL order
-            from presto_tpu_torch.ops.keys import _orderable_values, lex_perm
-            src = page.columns[a.field]
-            dictionary = src.dictionary if t.is_string else None
-            ov = _orderable_values(Column(vals, nulls, src.type, dictionary))
-            perm = lex_perm([torch.where(live, bin_code, prod), ov])
-            picked, pnull = segment_pick(
-                _kernel_values(vals)[perm], torch.cumsum(n_per, 0) - n_per,
-                n_per, 0.5 if a.param is None else a.param)
+            # approx_percentile (:392-414): K13 selects each bin's order
+            # statistic from the unsorted values
+            dictionary = page.columns[a.field].dictionary if t.is_string \
+                else None
+            picked, pnull = segment_select(
+                _kernel_values(vals), live,
+                0.5 if a.param is None else a.param, codes=bin_code,
+                bins=prod)
             cols.append(widen(picked, t, pnull[take], dictionary))
             continue
         if j is None:
@@ -1037,16 +1127,11 @@ def _eval_agg_sorted(a: AggSpec, sp: Page, gvalid, flags, starts, ends,
         return [out(torch.where(regs_on == 0, 0.0, torch.round(est)),
                     zeros)]
     if kind == "approx_percentile":
-        # :737-760: each group's rows by (NULL last, SQL order), then K13
-        from presto_tpu_torch.ops.keys import _orderable_values, lex_perm
-        v = _orderable_values(Column(vals, nulls, sp.columns[a.field].type,
-                                     dictionary))
-        gid = torch.cumsum((flags & gvalid).to(torch.int64), 0)
-        perm = lex_perm([gid, nulls.to(torch.int8), v])
-        picked, pnull = segment_pick(
-            _kernel_values(vals)[perm], starts,
-            seg(key, vals, ~nulls, 0)["cnt"],
-            0.5 if a.param is None else a.param)
+        # :737-760: K13 selects each group run's order statistic from the
+        # unsorted values (NULL and padding rows are not live)
+        picked, pnull = segment_select(
+            _kernel_values(vals), ~nulls,
+            0.5 if a.param is None else a.param, starts=starts, ends=ends)
         return [out(picked, pnull)]
     if kind in ("sum128", "avg128"):
         # DECIMAL(38): four limb sums per segment (K3's 128-bit mode);

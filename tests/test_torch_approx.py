@@ -14,8 +14,9 @@ package, on the CPU.
   estimate; on the small-range correction exact after the rounding the
   aggregate applies, at every zero count (torch's log and XLA's differ in
   the last bit at a few of them).
-- (d) K13's plain version (`segment_pick`) against the JAX package's pick
-  for p in {0, 0.25, 0.5, 0.9, 1}.
+- (d) the pick that ends K13's plain version (`_segment_pick_plain`)
+  against the JAX package's pick for p in {0, 0.25, 0.5, 0.9, 1}; the
+  whole step, sort and pick, is held in tests/test_torch_percentile.py.
 - (e) `grouped_aggregate` with both kinds on the direct, global and sorted
   paths, and the engine: the six queries of tests/test_approx_aggs.py,
   chip_smoke.py's a1-a5, the kinds beside sum/count/avg, NULL inputs from
@@ -341,9 +342,9 @@ def test_segment_pick_plain_matches_jax(p, dtype):
     want = np.asarray(jnp.take(jnp.asarray(vals),
                                jnp.clip(idx, 0, len(vals) - 1),
                                mode="clip"))
-    got, null = PA.segment_pick(torch.from_numpy(vals),
-                                torch.from_numpy(starts),
-                                torch.from_numpy(counts), p)
+    got, null = PA._segment_pick_plain(torch.from_numpy(vals),
+                                       torch.from_numpy(starts),
+                                       torch.from_numpy(counts), p)
     np.testing.assert_array_equal(null.numpy(), counts == 0)
     np.testing.assert_array_equal(got.numpy()[counts > 0],
                                   want[counts > 0])

@@ -12,8 +12,10 @@ machine has no JAX; this file imports none.)
 Tolerances: counts, indices, hashes, join pairs and flags, scans other
 than float64 sums, window outputs other than float64 sums and averages,
 int64 sums, min and max, HyperLogLog registers, present sums and counts
-(sums of powers of two, exact in any order) and order statistics exact; float64 sums within 1e-9 relative (the
-kernels sum in another order than the plain versions).
+(sums of powers of two, exact in any order) and order statistics exact
+(K13's bit for bit, NaN payloads and signed zeros included); float64 sums
+within 1e-9 relative (the kernels sum in another order than the plain
+versions).
 """
 
 import numpy as np
@@ -1394,21 +1396,167 @@ def test_hll_registers_sorted_huge_groups(cuda, groups):
     _hll_same_twice(cuda, vals, live, starts=starts, ends=ends)
 
 
+def _same_bits(a, b):
+    a, b = a.cpu(), b.cpu()
+    assert a.shape == b.shape and a.dtype == b.dtype
+    if a.dtype == torch.float64:
+        a, b = a.view(torch.int64), b.view(torch.int64)
+    assert torch.equal(a, b), (a, b)
+
+
+def _select_twice(cuda, vals, live, p, **groups):
+    """K13 on the card, launched twice: each launch counted once, both
+    equal bit for bit to each other and to the plain version (run on the
+    CPU, so that no sort on the card stands in the comparison)."""
+    want = A.segment_select(vals, live, p, **groups)
+    dev = {k: v.to(cuda) if torch.is_tensor(v) else v
+           for k, v in groups.items()}
+    for _ in range(2):
+        before = A.segment_select.launches
+        got = A.segment_select(vals.to(cuda), live.to(cuda), p, **dev)
+        torch.cuda.synchronize()
+        assert A.segment_select.launches == before + 1
+        _same_bits(got[0], want[0])
+        _same(got[1], want[1])
+
+
+def _runs(lengths):
+    ends = torch.from_numpy(np.cumsum(lengths)).to(torch.int64)
+    return ends - torch.from_numpy(np.asarray(lengths)).to(torch.int64), ends
+
+
 @pytest.mark.parametrize("p", [0.0, 0.25, 0.5, 0.9, 1.0])
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float64])
 def test_segment_pick_kernel_matches_plain(cuda, p, dtype):
+    """K13 (segment_select; the pick after a sort before it) on 100,000
+    runs of 0-50 unsorted rows, a tenth of them dead."""
     rng = np.random.default_rng(79)
-    counts = torch.from_numpy(rng.integers(0, 50, 100_000))
-    starts = torch.cumsum(counts, 0) - counts
-    vals = torch.from_numpy(np.sort(rng.integers(
-        -10 ** 6, 10 ** 6, int(counts.sum()) + 3))).to(dtype)
-    plain = A.segment_pick(vals, starts, counts, p)
-    before = A.segment_pick.launches
-    got = A.segment_pick(vals.to(cuda), starts.to(cuda), counts.to(cuda), p)
+    counts = rng.integers(0, 50, 100_000)
+    starts, ends = _runs(counts)
+    n = int(counts.sum()) + 3
+    vals = torch.from_numpy(rng.integers(-10 ** 6, 10 ** 6, n)).to(dtype)
+    live = torch.from_numpy(rng.random(n) < 0.9)
+    _select_twice(cuda, vals, live, p, starts=starts, ends=ends)
+
+
+def _tie_values(rng, n):
+    """-0.0, +0.0, subnormals and NaNs of several payloads (all of which
+    tie in the key) beside ordinary values."""
+    nans = np.array([0x7FF8000000000000, 0x7FF8000000000123,
+                     0xFFF8000000000000, 0x7FF0000000000001],
+                    np.uint64).view(np.float64)
+    pool = np.concatenate([[0.0, -0.0, 5e-324, -5e-324, 2.5e-310, 1.0, -1.0,
+                            np.inf, -np.inf], nans])
+    return torch.from_numpy(pool[rng.integers(0, len(pool), n)])
+
+
+def _select_case(name, rng):
+    """(values, live, groups) of one of SELECT_CASES."""
+    sm, bm = A.SELECT_WARP_MAX, A.SELECT_BLOCK_MAX
+    if name == "ties, 6 bins":
+        n = 1 << 20
+        return (_tie_values(rng, n), torch.from_numpy(rng.random(n) < 0.9),
+                {"codes": torch.from_numpy(rng.integers(0, 6, n)
+                                           .astype(np.int32)), "bins": 6})
+    if name == "ties, runs of every tier":
+        lengths = np.array([1, 31, 32, sm, sm + 1, bm, bm + 1, 300_000, 0,
+                            5, 100_000])
+        n = int(lengths.sum()) + 11
+        starts, ends = _runs(lengths)
+        return (_tie_values(rng, n), torch.from_numpy(rng.random(n) < 0.9),
+                {"starts": starts, "ends": ends})
+    if name == "ties at one key, 2^20 rows":
+        n = 1 << 20
+        v = torch.from_numpy(np.array([0.0, -0.0, 5e-324, 7.0])[
+            rng.choice(4, n, p=[0.4, 0.3, 0.2, 0.1])])
+        return (v, torch.ones(n, dtype=torch.bool),
+                {"codes": torch.zeros(n, dtype=torch.int32), "bins": 1})
+    if name == "one group of 2^23 rows, 50 values":
+        n, live_n = 1 << 23, 6_001_215
+        v = torch.from_numpy(rng.integers(1, 51, n).astype(np.float64))
+        return (v, torch.arange(n) < live_n,
+                {"codes": torch.zeros(n, dtype=torch.int32), "bins": 1})
+    if name == "64 bins":
+        n = 1 << 21
+        v = torch.from_numpy(rng.integers(90_000, 10_500_000, n) / 100.0)
+        return (v, torch.from_numpy(rng.random(n) < 0.95),
+                {"codes": torch.from_numpy(rng.integers(0, 64, n)
+                                           .astype(np.int32)), "bins": 64})
+    if name == "one run holding the page":
+        n = 1 << 22
+        v = torch.from_numpy(rng.standard_normal(n))
+        starts, ends = _runs([n])
+        return (v, torch.from_numpy(rng.random(n) < 0.7),
+                {"starts": starts, "ends": ends})
+    if name == "seven runs of 0.86M dates":
+        n = 6_001_215
+        lengths = np.bincount(rng.integers(0, 7, n), minlength=7)
+        starts, ends = _runs(lengths)
+        pad = torch.full((1017,), n, dtype=torch.int64)
+        v = torch.from_numpy(rng.integers(8036, 10562, 1 << 23)
+                             .astype(np.int32))
+        return (v, torch.arange(1 << 23) < n,
+                {"starts": torch.cat([starts, pad]),
+                 "ends": torch.cat([ends, pad])})
+    assert name == "10,000 runs of int64, sorted runs unsorted within"
+    lengths = np.bincount(rng.integers(0, 10_000, 6_000_000),
+                          minlength=10_000)
+    starts, ends = _runs(lengths)
+    n = int(lengths.sum())
+    v = torch.from_numpy(rng.integers(-2 ** 62, 2 ** 62, n))
+    return v, torch.from_numpy(rng.random(n) < 0.95), {"starts": starts,
+                                                        "ends": ends}
+
+
+SELECT_CASES = ["ties, 6 bins", "ties, runs of every tier",
+                "ties at one key, 2^20 rows",
+                "one group of 2^23 rows, 50 values", "64 bins",
+                "one run holding the page", "seven runs of 0.86M dates",
+                "10,000 runs of int64, sorted runs unsorted within"]
+
+
+@pytest.mark.parametrize("p", [0.0, 0.25, 0.5, 1.0])
+@pytest.mark.parametrize("name", SELECT_CASES)
+def test_segment_select_kernel_cases(cuda, name, p):
+    """K13's schedule and its ties: every tier of run lengths, bins of the
+    direct path up to 64, one group of 2^23 rows of 50 values, one run of
+    the whole page, rows of one key but different bits (compared bit for
+    bit)."""
+    rng = np.random.default_rng(80 + SELECT_CASES.index(name))
+    vals, live, groups = _select_case(name, rng)
+    _select_twice(cuda, vals, live, p, **groups)
+
+
+def _sort_kernels(engine, sql) -> int:
+    """Device kernels whose name holds "sort" in one warm run of sql."""
+    from torch.profiler import ProfilerActivity, profile
+    engine.execute_sql(sql)
     torch.cuda.synchronize()
-    assert A.segment_pick.launches == before + 1
-    _same(got[1], plain[1])
-    _same(got[0][~plain[1].to(cuda)], plain[0][~plain[1]])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.execute_sql(sql)
+        torch.cuda.synchronize()
+    return sum(1 for ev in prof.events()
+               if ev.device_type.name == "CUDA" and "sort" in ev.name.lower())
+
+
+@pytest.mark.parametrize("name", ["a1", "a3"])
+def test_approx_percentile_sorts_nothing_on_the_card(cuda, name):
+    """K13 computes the whole approx_percentile step: a1 (global) and a3
+    (sorted path) launch K13 and as many sort kernels as the same query
+    with count() in place of the percentile (the GROUP BY's own sort)."""
+    from chip_smoke import APPROX_QUERIES
+    from presto_tpu_torch.connectors import TpchConnector
+    from presto_tpu_torch.exec.engine import LocalEngine
+    sql = APPROX_QUERIES[name]
+    twin = sql.replace("approx_percentile(l_quantity, 0.5)",
+                       "count(l_quantity)").replace(
+        "approx_percentile(l_discount, 0.25)", "count(l_discount)")
+    assert twin != sql
+    engine = LocalEngine(TpchConnector(0.01))
+    before = A.segment_select.launches
+    with_pct = _sort_kernels(engine, sql)
+    assert A.segment_select.launches == before + 2
+    assert with_pct == _sort_kernels(engine, twin)
 
 
 def test_approx_queries_on_the_card_match_the_cpu(cuda):
@@ -1419,9 +1567,9 @@ def test_approx_queries_on_the_card_match_the_cpu(cuda):
     from presto_tpu_torch.exec.engine import LocalEngine
     conn = TpchConnector(0.01)
     gpu, cpu = LocalEngine(conn), LocalEngine(conn, device="cpu")
-    before = (A.hll_registers.launches, A.segment_pick.launches)
+    before = (A.hll_registers.launches, A.segment_select.launches)
     for sql in APPROX_QUERIES.values():
         got = gpu.execute_sql(sql)
         assert got and sorted(got) == sorted(cpu.execute_sql(sql))
     assert A.hll_registers.launches > before[0]
-    assert A.segment_pick.launches > before[1]
+    assert A.segment_select.launches > before[1]
