@@ -65,19 +65,24 @@ Phases, each fatal on failure, each printing its seconds:
         against the warm run's, and the warm run's against the same
         engine on the CPU and, for q01, q06, the q18 block, q03, q04, q13
         and q18, against an independent numpy computation over the
-        generated tables; K1-K6 must have been launched here;
+        generated tables; K1-K6 must have been launched here; no warm
+        run may compute a dictionary transform (expr/compile.DICT_CACHE),
+        and q13's and q22's warm walls and transforms are printed;
      b. the breadth path: TPC-DS q47, q51, q67, q70, q16, q75 and q97
         (LocalEngine(TpcdsConnector(1.0))) and four TPC-H SF1 queries over
         windows and a distinct mark, each cold and warm on the card, the
         warm rows held against the cold ones and against the engine on
         the CPU; K7-K9 must have been launched here;
-     c. the decimal path: TPC-H q01, q03, q06, q10 and q19 and a
+     c. the decimal path: TPC-H q01, q03, q06, q10, q14 and q19, q14's
+        two sums (Q14_SUMS) and a
         DECIMAL(33,4) min/max (DECIMAL_MINMAX) over SF1 lineitem with its
         four money columns typed DECIMAL(12,2), as the spec types them (a
         MemoryConnector table over the generator's arrays, falling back to
         TpchConnector(1.0)), each cold and warm on the card; the rows held
         exactly (Decimal for Decimal) against the cold run, the engine on
-        the CPU and, for q01, q06 and the min/max, numpy int64 arithmetic;
+        the CPU and, for q01, q06, q14's sums and the min/max, numpy int64
+        arithmetic (q14's DOUBLE quotient within 1e-15 of the CPU's and
+        of the exact quotient in Python Decimal: K10's cast to double);
         K10 and the 128-bit modes of K1 and K3 must have been launched
         here;
      d. the nested path: the four UNNEST queries of
@@ -99,6 +104,18 @@ Phases, each fatal on failure, each printing its seconds:
         counts (10,000 groups of about 80 distinct values put a few
         single counts past 6.9% by chance: a3 has one at 7.5%); K12 and
         K13 must have been launched here;
+     f. the statement path (statements()) over MemoryConnector(fallback=
+        TpchConnector(1.0)) on the card: CREATE TABLE AS of lineitem's
+        returnflag aggregate (4 rows) and of March 1995's orders, an
+        INSERT ... SELECT of April's, a DELETE, a GROUP BY and a join with
+        lineitem over the written table, EXPLAIN of the join, TPC-H q15
+        with cte_materialization_enabled and inlined, and DROP TABLE of
+        both; then the same sequence on the engine on the CPU; every
+        count row and query row held against the CPU's and against numpy
+        over the generated arrays, the written tables column by column
+        against the CPU's, the EXPLAIN text against the CPU's, q15
+        materialized against q15 inlined; K1, K2, K4 and K5 must have been
+        launched here, and K3 and K10 across phases c and f;
   5. all 22 TPC-H queries at SF 0.01 and all 99 TPC-DS queries at SF
      0.002 on the card, cold and warm, the window and grouping-set
      queries of tests/test_window_outer.py and tests/test_grouping_sets.py
@@ -113,7 +130,7 @@ Phases, each fatal on failure, each printing its seconds:
 
 The JSON kernel report is printed two lines before the end, then the
 card's name and power limit, then {"ok": true, "device": {...}} as the
-last line; each kernel's `launches` there is its count over the five
+last line; each kernel's `launches` there is its count over the six
 main paths of phase 4. Imports nothing of JAX or presto_tpu: the query lists
 of the test files are read from their source with `ast`.
 """
@@ -230,8 +247,9 @@ TPCDS_SF = 1.0                     # TPC-DS scale factor of the breadth path
 TPCDS_SQLITE_SF = 0.002            # TPC-DS scale factor of the sqlite phase
 TPCDS_MAIN = (47, 51, 67, 70, 16, 75, 97)
 #: TPC-H queries of the decimal path, over lineitem with DECIMAL(12,2)
-#: money columns
-DECIMAL_MAIN = (1, 3, 6, 10, 19)
+#: money columns (q14: CASE over a DECIMAL(38) product, then a DOUBLE
+#: quotient)
+DECIMAL_MAIN = (1, 3, 6, 10, 14, 19)
 RTOL_F64 = 1e-15                   # K10's to_double: torch divides by a
                                    # scalar through its reciprocal
 
@@ -328,12 +346,29 @@ group by l_returnflag, l_linestatus
 """
 
 
+#: spec-typed q14's two sums, exact Decimals (q14 divides them in DOUBLE)
+Q14_SUMS = """
+select sum(case when p_type like 'PROMO%'
+                then l_extendedprice * (1 - l_discount) else 0 end),
+       sum(l_extendedprice * (1 - l_discount))
+from lineitem, part
+where l_partkey = p_partkey
+  and l_shipdate >= date '1995-09-01'
+  and l_shipdate < date '1995-09-01' + interval '1' month
+"""
+
+#: decimal-path queries whose rows are DOUBLE, held within RTOL_F64
+#: (K10's cast to double)
+DECIMAL_FLOAT = ("q14",)
+
+
 def decimal_queries() -> dict:
     """The decimal path's queries: name -> (SQL, whether its rows come in
     a defined order)."""
     tpch = tpch_queries()
     out = {f"q{q:02d}": (tpch[q], "order by" in tpch[q].lower())
            for q in DECIMAL_MAIN}
+    out["q14_sums"] = (Q14_SUMS, False)
     out["minmax"] = (DECIMAL_MINMAX, False)
     return out
 
@@ -2597,13 +2632,16 @@ def rows_match(actual, expected, what: str, ordered: bool,
                 fail(f"{what}: row {i}: {a} != {e}")
 
 
-def _run_queries(engine, queries, counters, what, required=None) -> tuple:
+def _run_queries(engine, queries, counters, what, required=None,
+                 transforms=None) -> tuple:
     """Each query cold then warm on the card, with the kernels' launch
     counts set to 0 just before and read just after. Returns (rows of
     the cold and the warm run, walls, launches per query and run,
     launches in all). Fails where a kernel of `required` (names; default
-    all) was not launched."""
+    all) was not launched. With `transforms` (a dict), fills it with the
+    dictionary transforms each run computed: name -> [cold, warm]."""
     import torch
+    from presto_tpu_torch.expr.compile import DICT_CACHE
     rows, walls, per_query = {}, {}, {}
     for k in counters:
         k.launches = 0
@@ -2611,12 +2649,16 @@ def _run_queries(engine, queries, counters, what, required=None) -> tuple:
         walls[name], rows[name] = [], []
         for _run in range(2):           # cold (uploads, retries), warm
             before = [k.launches for k in counters]
+            computed = DICT_CACHE.computed
             torch.cuda.synchronize()
             t = time.perf_counter()
             rows[name].append(engine.execute_sql(sql))
             walls[name].append(time.perf_counter() - t)
             per_query.setdefault(name, []).append(
                 [k.launches - b for k, b in zip(counters, before)])
+            if transforms is not None:
+                transforms.setdefault(name, []).append(
+                    DICT_CACHE.computed - computed)
     launches = {k.__name__: k.launches for k in counters}
     for name, n in launches.items():
         if n == 0 and (required is None or name in required):
@@ -2633,14 +2675,25 @@ def main_path(conn, counters) -> dict:
         fail(f"the engine chose {gpu.device}, not the card")
     queries = main_queries()
     required = [k.__name__ for k in counters[:6]]
+    transforms = {}
     gpu_rows, walls, per_query, launches = _run_queries(
-        gpu, queries, counters, "main path", required)
+        gpu, queries, counters, "main path", required, transforms)
     for name, (_sql, ordered) in queries.items():
         cold, warm = gpu_rows[name]
         rows_match(cold, warm, f"{name} card cold vs warm", ordered)
         if name in expected:
             rows_match(warm, expected[name], f"{name} card vs numpy",
                        ordered)
+    # the dictionary transforms (LIKE, substring, the literal merges) are
+    # built once per dictionary: a warm run computes none
+    for name in ("q13", "q22"):
+        print(f"{name}: warm wall {walls[name][1] * 1e3:.1f} ms; dictionary "
+              f"transforms computed cold {transforms[name][0]}, warm "
+              f"{transforms[name][1]}", flush=True)
+    for name, (cold_n, warm_n) in transforms.items():
+        if warm_n:
+            fail(f"{name}: its warm run computed {warm_n} dictionary "
+                 f"transforms (cold {cold_n})")
 
     cpu = LocalEngine(conn, device="cpu")
     names = [k.__name__ for k in counters]
@@ -2784,11 +2837,12 @@ def _half_up(num: int, den: int) -> int:
     return q if num >= 0 else -q
 
 
-def decimal_numpy_reference(table) -> dict:
-    """q01 and q06 over the DECIMAL(12,2) lineitem with numpy int64 alone:
-    sums of unscaled cents, products at scale 4 and 6 (q01's sum_charge
-    per group is about 1.7e17 units of 1e-6 at SF1, inside int64), averages
-    HALF_UP at scale 2."""
+def decimal_numpy_reference(table, part) -> dict:
+    """q01, q06 and q14 over the DECIMAL(12,2) lineitem (`table`) and
+    `part` with numpy int64 alone: sums of unscaled cents, products at
+    scale 4 and 6 (q01's sum_charge per group is about 1.7e17 units of
+    1e-6 at SF1, inside int64), averages HALF_UP at scale 2; q14's
+    quotient of its two exact sums in Python Decimal."""
     from decimal import Decimal
     a = {c: v[:table.num_rows] for c, v in table.arrays.items()}
     words = {c: table.dicts[c].words for c in ("l_returnflag",
@@ -2826,7 +2880,20 @@ def decimal_numpy_reference(table) -> dict:
                Decimal(int(prod[code == u].min())).scaleb(-4),
                Decimal(int(prod[code == u].max())).scaleb(-4))
               for u in np.unique(code)]
-    return {"q01": q01, "q06": q06, "minmax": minmax}
+    m = (ship >= _days(1995, 9, 1)) & (ship < _days(1995, 10, 1))
+    partkey = part.arrays["p_partkey"][:part.num_rows]
+    row = np.searchsorted(partkey, a["l_partkey"][m])
+    if not np.array_equal(partkey[row], a["l_partkey"][m]):
+        fail("q14's numpy reference: a part key is not in part")
+    promo_word = np.array([w.startswith("PROMO")
+                           for w in part.dicts["p_type"].words])
+    promo = promo_word[part.arrays["p_type"][:part.num_rows][row]]
+    rev = price[m] * (100 - disc[m])                      # scale 4
+    s_promo, s_all = int(np.sum(rev[promo])), int(np.sum(rev))
+    q14_sums = [(Decimal(s_promo).scaleb(-4), Decimal(s_all).scaleb(-4))]
+    q14 = [(float(Decimal(100 * s_promo) / Decimal(s_all)),)]
+    return {"q01": q01, "q06": q06, "minmax": minmax, "q14": q14,
+            "q14_sums": q14_sums}
 
 
 def decimal_path(mem, counters) -> dict:
@@ -2843,7 +2910,8 @@ def decimal_path(mem, counters) -> dict:
     from presto_tpu_torch.exec.engine import LocalEngine
 
     t = time.perf_counter()
-    expected = decimal_numpy_reference(mem.table("lineitem"))
+    expected = decimal_numpy_reference(mem.table("lineitem"),
+                                       mem.table("part"))
     print(f"the DECIMAL(12,2) lineitem's numpy reference in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
     queries = decimal_queries()
@@ -2860,13 +2928,20 @@ def decimal_path(mem, counters) -> dict:
         t = time.perf_counter()
         want = cpu.execute_sql(sql)
         cpu_s = time.perf_counter() - t
-        if warm != want:
-            fail(f"{name} decimal: card rows differ from the CPU's")
-        if name in expected and warm != expected[name]:
-            fail(f"{name} decimal: card rows differ from numpy's: "
-                 f"{warm[:2]} != {expected[name][:2]}")
-        if not any(isinstance(v, Decimal) for v in warm[0]):
-            fail(f"{name} decimal: no Decimal in the rows")
+        if name in DECIMAL_FLOAT:
+            # a DOUBLE quotient of exact sums: within K10's to_double
+            rows_match(warm, want, f"{name} decimal card vs CPU", True,
+                       RTOL_F64)
+            rows_match(warm, expected[name], f"{name} decimal card vs "
+                       f"numpy", True, RTOL_F64)
+        else:
+            if warm != want:
+                fail(f"{name} decimal: card rows differ from the CPU's")
+            if name in expected and warm != expected[name]:
+                fail(f"{name} decimal: card rows differ from numpy's: "
+                     f"{warm[:2]} != {expected[name][:2]}")
+            if not any(isinstance(v, Decimal) for v in warm[0]):
+                fail(f"{name} decimal: no Decimal in the rows")
         print(f"{name} decimal: {len(warm)} rows equal the CPU's"
               f"{' and numpy' if name in expected else ''}; card wall cold "
               f"{walls[name][0] * 1e3:.1f} ms, warm "
@@ -3119,6 +3194,175 @@ def approx_path(conn, counters) -> dict:
               f"{walls[name][1] * 1e3:.1f} ms; CPU {cpu_s:.2f} s; launches "
               f"per run {names} cold {per_query[name][0]} warm "
               f"{per_query[name][1]}", flush=True)
+    return launches
+
+
+#: phase 4f's orders columns and its join of the written table
+O95_COLUMNS = ("o_orderkey, o_custkey, o_totalprice, o_orderdate, "
+               "o_orderpriority")
+JOIN_O95 = ("select count(*), sum(l_extendedprice) from o95 "
+            "join lineitem on l_orderkey = o_orderkey")
+
+
+def statements() -> dict:
+    """Phase 4f's sequence: name -> (engine, SQL); the engine "mat" has
+    cte_materialization_enabled, "plain" has not, both over one
+    MemoryConnector(fallback=TpchConnector(SF))."""
+    q15 = tpch_queries()[15]
+    return {
+        "ctas_rf": ("plain",
+                    "create table rf as select l_returnflag, l_linestatus, "
+                    "count(*) c, sum(l_quantity) q, sum(l_extendedprice) p "
+                    "from lineitem group by 1, 2"),
+        "select_rf": ("plain", "select * from rf "
+                      "order by l_returnflag, l_linestatus"),
+        "ctas_o95": ("plain",
+                     f"create table o95 as select {O95_COLUMNS} from orders "
+                     "where o_orderdate between date '1995-03-01' "
+                     "and date '1995-03-31'"),
+        "insert_o95": ("plain",
+                       f"insert into o95 select {O95_COLUMNS} from orders "
+                       "where o_orderdate between date '1995-04-01' "
+                       "and date '1995-04-30'"),
+        "delete_o95": ("plain",
+                       "delete from o95 where o_totalprice < 100000"),
+        "group_o95": ("plain",
+                      "select o_orderpriority, count(*), sum(o_totalprice) "
+                      "from o95 group by o_orderpriority "
+                      "order by o_orderpriority"),
+        "join_o95": ("plain", JOIN_O95),
+        "explain_join": ("plain", "explain " + JOIN_O95),
+        "q15_materialized": ("mat", q15),
+        "q15_inlined": ("plain", q15),
+        "drop_rf": ("plain", "drop table rf"),
+        "drop_o95": ("plain", "drop table o95"),
+    }
+
+
+def statement_numpy_reference(conn) -> dict:
+    """Phase 4f's count rows and query rows (but q15's and the EXPLAIN's)
+    with numpy alone over the generated arrays."""
+    li, od = conn.table("lineitem"), conn.table("orders")
+    a = {c: v[:li.num_rows] for c, v in li.arrays.items()}
+    o = {c: v[:od.num_rows] for c, v in od.arrays.items()}
+    rf_w = li.dicts["l_returnflag"].words
+    ls_w = li.dicts["l_linestatus"].words
+    code = a["l_returnflag"].astype(np.int64) * len(ls_w) + a["l_linestatus"]
+    uniq, inv = np.unique(code, return_inverse=True)
+    cnt = np.bincount(inv)
+    qty = np.bincount(inv, weights=a["l_quantity"])
+    price = np.bincount(inv, weights=a["l_extendedprice"])
+    out = {"ctas_rf": [(len(uniq),)],
+           "select_rf": [(rf_w[u // len(ls_w)], ls_w[u % len(ls_w)],
+                          int(cnt[i]), float(qty[i]), float(price[i]))
+                         for i, u in enumerate(uniq)]}
+    date = o["o_orderdate"]
+    march = (date >= _days(1995, 3, 1)) & (date <= _days(1995, 3, 31))
+    april = (date >= _days(1995, 4, 1)) & (date <= _days(1995, 4, 30))
+    kept = (march | april) & (o["o_totalprice"] >= 100000)
+    out["ctas_o95"] = [(int(march.sum()),)]
+    out["insert_o95"] = [(int(april.sum()),)]
+    out["delete_o95"] = [(int(((march | april) & ~kept).sum()),)]
+    prio = od.dicts["o_orderpriority"].words
+    codes, inv = np.unique(o["o_orderpriority"][kept], return_inverse=True)
+    out["group_o95"] = [
+        (prio[c], int(n), float(t)) for c, n, t in zip(
+            codes, np.bincount(inv),
+            np.bincount(inv, weights=o["o_totalprice"][kept]))]
+    hit = np.isin(a["l_orderkey"], o["o_orderkey"][kept])
+    out["join_o95"] = [(int(hit.sum()),
+                        float(a["l_extendedprice"][hit].sum()))]
+    out["drop_rf"] = out["drop_o95"] = [(0,)]
+    return out
+
+
+def tables_match(a: dict, b: dict, what: str) -> None:
+    """Two connectors' written tables (name -> HostTable) hold the same
+    columns: nulls, integers and dictionary words exactly, floats within
+    RTOL_SUM."""
+    if sorted(a) != sorted(b):
+        fail(f"{what}: tables {sorted(a)} != {sorted(b)}")
+    for name, ta in a.items():
+        tb = b[name]
+        n = ta.num_rows
+        if tb.num_rows != n or ta.column_names() != tb.column_names():
+            fail(f"{what}: table {name} differs in shape")
+        for c in ta.column_names():
+            na = np.asarray((ta.nulls or {}).get(c, np.zeros(n, bool))[:n])
+            nb = np.asarray((tb.nulls or {}).get(c, np.zeros(n, bool))[:n])
+            va, vb = ta.arrays[c][:n][~na], tb.arrays[c][:n][~nb]
+            if not np.array_equal(na, nb):
+                fail(f"{what}: {name}.{c} nulls differ")
+            if ta.types[c].is_string and \
+                    ta.dicts[c].words != tb.dicts[c].words:
+                fail(f"{what}: {name}.{c} dictionary words differ")
+            if ta.types[c].is_floating:
+                if np.any(np.abs(va - vb) > RTOL_SUM * np.maximum(
+                        np.abs(vb), 1.0)):
+                    fail(f"{what}: {name}.{c} values differ")
+            elif not np.array_equal(va, vb):
+                fail(f"{what}: {name}.{c} values differ")
+
+
+def statement_path(conn, counters) -> dict:
+    """Phase 4f: statements() on the card, over MemoryConnector(fallback=
+    conn), with the kernels' launch counts set to 0 just before and read
+    just after; then the same sequence on the engine on the CPU. Every
+    count row and query row held against the CPU's and numpy's
+    (statement_numpy_reference), the written tables against the CPU's
+    before the drops, the EXPLAIN text against the CPU's, and q15
+    materialized against q15 inlined. K1, K2, K4 and K5 must have been
+    launched."""
+    import torch
+    from presto_tpu_torch.config import Session
+    from presto_tpu_torch.connectors import MemoryConnector
+    from presto_tpu_torch.exec.engine import LocalEngine
+
+    expected = statement_numpy_reference(conn)
+    seq = statements()
+    results, walls, tables = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        dev = None if device == "cuda" else "cpu"
+        mem = MemoryConnector(fallback=conn)
+        engines = {"plain": LocalEngine(mem, device=dev),
+                   "mat": LocalEngine(mem, device=dev, session=Session(
+                       {"cte_materialization_enabled": "true"}))}
+        if engines["plain"].device.type != device:
+            fail(f"the engine chose {engines['plain'].device}, not {device}")
+        if device == "cuda":
+            for k in counters:
+                k.launches = 0
+        rows = results[device] = {}
+        for name, (which, sql) in seq.items():
+            if name.startswith("drop") and device not in tables:
+                tables[device] = dict(mem.tables)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rows[name] = engines[which].execute_sql(sql)
+            walls.setdefault(name, []).append(time.perf_counter() - t)
+        if device == "cuda":
+            launches = {k.__name__: k.launches for k in counters}
+        if mem.tables:
+            fail(f"statement path ({device}): tables left {list(mem.tables)}")
+    for name in ("direct_agg", "compact_indices", "hash_columns",
+                 "join_probe"):
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched on the statement path")
+    tables_match(tables["cuda"], tables["cpu"], "written tables, card vs CPU")
+    gpu, cpu = results["cuda"], results["cpu"]
+    for name, (_which, sql) in seq.items():
+        ordered = "order by" in sql.lower() or name.startswith("explain")
+        rows_match(gpu[name], cpu[name], f"{name} card vs CPU", ordered)
+        if name in expected:
+            rows_match(gpu[name], expected[name], f"{name} card vs numpy",
+                       ordered)
+        print(f"{name}: {len(gpu[name])} rows, first {gpu[name][0]}; card "
+              f"wall {walls[name][0] * 1e3:.1f} ms, CPU "
+              f"{walls[name][1]:.2f} s", flush=True)
+    if gpu["explain_join"] != cpu["explain_join"]:
+        fail("EXPLAIN text differs between the card and the CPU")
+    rows_match(gpu["q15_materialized"], gpu["q15_inlined"],
+               "q15 materialized vs inlined, card", True)
     return launches
 
 
@@ -3389,10 +3633,18 @@ def main() -> int:
     print(f"phase 4e: approx path in {time.perf_counter() - t0:.1f} s; "
           f"launches {approx}; torch-op stage calls {calls.counts}",
           flush=True)
+    calls.reset()
+    t0 = time.perf_counter()
+    stmts = statement_path(conn, decimal_counters)
+    print(f"phase 4f: statement path in {time.perf_counter() - t0:.1f} s; "
+          f"launches {stmts}; torch-op stage calls {calls.counts}",
+          flush=True)
+    for name in ("segment_reduce", "int128_op"):
+        if decimal[name] + stmts[name] == 0:
+            fail(f"kernel {name} was not launched on phases 4c and 4f")
+    paths = (launches, breadth, decimal, unnest, approx, stmts)
     for r in report:
-        r["launches"] = sum(path.get(r["name"], 0) for path in (
-            launches, breadth, decimal, unnest, approx))
-    paths = (launches, breadth, decimal, unnest, approx)
+        r["launches"] = sum(path.get(r["name"], 0) for path in paths)
     print("join_probe launches by mode on the main paths: " + json.dumps(
         {m: sum(path[f"join_probe_{m}"] for path in paths)
          for m in MODE_NAMES}), flush=True)

@@ -7,15 +7,17 @@ once, with one sorted StringDict per string column. An optional `fallback`
 connector serves the names not written here (CTAS from tpch into memory
 through one engine connector).
 
-Ported: create, append_rows (python rows, decimals exact), register (a
-host table served as it is) and the fallback reads. DECIMAL(p>18)
+Ported: create, drop, exists, append_rows (python rows, decimals exact),
+register (a host table served as it is), the fallback reads, and the
+table versions (every create, append and drop bumps the table's version;
+names read through keep the fallback's versions and connector id).
+DECIMAL(p>18)
 columns hold python-int unscaled values and scan as Decimal128Column limb
 lanes (connectors/tpch.HostTable.page). ARRAY/MAP/ROW columns take python
 values (lists, dicts, tuples, None), held as numpy lanes
 (data/column.NestedArrays) laid out as the JAX package's from_pylist
-lays them out, and scan as NestedColumns. Drop, split
-slices, staged INSERT moves, row-slice views, table versions and the
-stream watermarks are later slices.
+lays them out, and scan as NestedColumns. Split slices, staged INSERT
+moves, row-slice views and the stream watermarks are later slices.
 """
 
 from __future__ import annotations
@@ -40,6 +42,19 @@ class MemoryConnector(SplitSource):
         self.fallback = fallback
         self.tables: Dict[str, HostTable] = {}
         self._write_lock = threading.Lock()
+
+    def connector_id(self, table: str = None) -> str:
+        if table is not None and table not in self.tables \
+                and self.fallback is not None:
+            return self.fallback.connector_id(table)
+        return self.NAME
+
+    def table_version(self, table: str) -> int:
+        # tables written here version here; names read through keep the
+        # fallback's versions
+        if table not in self.tables and self.fallback is not None:
+            return self.fallback.table_version(table)
+        return super().table_version(table)
 
     # ------------------------------------------------------------- reads
     def schema(self, table: str) -> List[Tuple[str, Type]]:
@@ -72,6 +87,9 @@ class MemoryConnector(SplitSource):
         in place of the fallback's table of that name."""
         self.tables[table.name] = table
 
+    def exists(self, name: str) -> bool:
+        return name in self.tables
+
     def create(self, name: str, schema: Sequence[Tuple[str, Type]]):
         if name in self.tables:
             raise ValueError(f"table {name} already exists")
@@ -94,13 +112,23 @@ class MemoryConnector(SplitSource):
             else:
                 arrays[c] = np.zeros(0, t.dtype)
         self.tables[name] = HostTable(name, 0, arrays, types, dicts)
+        self.bump_table_version(name)
+
+    def drop(self, name: str, if_exists: bool = False):
+        if name not in self.tables and not if_exists:
+            raise KeyError(f"unknown table {name}")
+        if self.tables.pop(name, None) is not None:
+            self.bump_table_version(name)
 
     def append_rows(self, name: str, rows: List[tuple]) -> int:
         """Append python rows (strings decoded, decimals as python floats
         or Decimals, None for NULL). Reference role:
         ConnectorPageSink.appendPage (MemoryPagesStore.add)."""
         with self._write_lock:
-            return self._append_rows_locked(name, rows)
+            n = self._append_rows_locked(name, rows)
+            if n:
+                self.bump_table_version(name)
+            return n
 
     def _append_rows_locked(self, name: str, rows: List[tuple]) -> int:
         t = self.tables[name]

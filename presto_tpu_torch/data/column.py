@@ -104,12 +104,18 @@ def bucket_capacity(n: int) -> int:
 
 
 class StringDict:
-    """Host-side sorted string dictionary, compared by identity."""
+    """Host-side sorted string dictionary, compared by identity.
 
-    __slots__ = ("words",)
+    `derived` holds what expressions build from the words (transformed
+    dictionaries, predicate and remap tables; expr/compile.py
+    `_dict_cached`), so it lives and dies with the dictionary: a key can
+    never meet a recycled id."""
+
+    __slots__ = ("words", "derived")
 
     def __init__(self, words: Sequence[str]):
         self.words: Tuple[str, ...] = tuple(words)
+        self.derived: Optional[dict] = None
 
     def __len__(self) -> int:
         return len(self.words)

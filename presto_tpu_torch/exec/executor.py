@@ -37,8 +37,12 @@ duplicate counts and the checked-arithmetic error lane are read in ONE
 host sync at the end of the plan, and an overflow (or a duplicate build
 key under a merge join, watched under the negated node id) re-runs the
 plan at larger learned capacities (kept per plan for the executor's
-lifetime); an unnest's output capacity is learned the same way. Other
-node types (exchanges and remote sources, table writers) raise
+lifetime); an unnest's output capacity is learned the same way.
+
+A TableWriterNode root (`_execute_writer`, presto_tpu/exec/executor.py
+:174) runs its source tree on the device, then sinks the rows through the
+connector's `append_rows` on the host and returns the one-row BIGINT count
+page. Other node types (exchanges and remote sources) raise
 NotImplementedError: later slices of the port. So
 do the three join cases the JAX executor does not implement either (a
 residual filter on a FULL join, a FULL join and a LEFT join with a
@@ -71,8 +75,8 @@ from presto_tpu_torch.ops.window import window_page
 from presto_tpu_torch.plan.nodes import (
     AggregationNode, AssignUniqueIdNode, FilterNode, GroupIdNode, JoinNode,
     JoinType, LimitNode, MarkDistinctNode, OutputNode, PlanNode,
-    ProjectNode, SortNode, TableScanNode, TopNNode, UnionAllNode,
-    UnnestNode, ValuesNode, WindowNode,
+    ProjectNode, SortNode, TableScanNode, TableWriterNode, TopNNode,
+    UnionAllNode, UnnestNode, ValuesNode, WindowNode,
 )
 
 
@@ -162,6 +166,11 @@ class Executor:
         budget = self.session["query_max_execution_time"]
         self._deadline = (time.time() + budget) if budget else None
         plan = self._resolve_subqueries(plan)
+        if isinstance(plan, TableWriterNode):
+            return self._execute_writer(plan)
+        return self._execute_tree(plan)
+
+    def _execute_tree(self, plan: PlanNode) -> Page:
         caps = self._learned.setdefault(plan, {})
         for _attempt in range(8):
             out, watch, needed, err = self._run(plan, caps)
@@ -178,6 +187,36 @@ class Executor:
                 E.raise_for_mask(counters[-1])
                 return out
         raise RuntimeError("capacity retry loop did not converge")
+
+    def _execute_writer(self, node: TableWriterNode) -> Page:
+        """Writer root: run the source tree on the device, then sink the
+        rows on the host (ConnectorPageSink role) and emit the count row
+        (TableWriterOperator's output contract). `column_names` maps the
+        source outputs onto the target schema (missing columns NULL-fill),
+        so a writer whose column order differs from the table layout still
+        writes correctly."""
+        page = self._execute_tree(node.source)
+        rows = page.to_pylist()
+        names = [c for c, _t in self.connector.schema(node.table)]
+        cols = list(node.column_names) or list(page.names)
+        if rows and len(rows[0]) != len(cols):
+            raise ValueError(
+                f"writer arity {len(rows[0])} != declared columns "
+                f"{len(cols)}")
+        if cols != names:
+            unknown = [c for c in cols if c not in names]
+            if unknown:
+                raise ValueError(
+                    f"writer columns not in table {node.table!r}: "
+                    f"{unknown}")
+            pos = {c: i for i, c in enumerate(cols)}
+            rows = [tuple(r[pos[c]] if c in pos else None
+                          for c in names) for r in rows]
+        n = self.connector.append_rows(node.table, rows)
+        out = Column.from_numpy(np.array([n], dtype=np.int64),
+                                node.output_types[0], device=self.device)
+        return Page.from_columns([out], 1, node.output_names,
+                                 device=self.device)
 
     def _check_deadline(self):
         if self._deadline is not None and time.time() > self._deadline:

@@ -6,6 +6,10 @@ tensor ops, eagerly on the page's device. SQL three-valued logic rides as
 an explicit null lane per sub-expression; string operations use the
 sorted-dictionary invariant (comparisons on int32 codes; LIKE and string
 transforms run on the host over the dictionary, then one device gather).
+What a dictionary gives a function and its literal arguments (the output
+dictionary, the device remap, predicate or null table) is built once and
+kept on the dictionary (`_dict_cached`), where the JAX package builds it
+once per trace: a warm query does no host work over words.
 
 As in the JAX package, row-level division by zero yields NULL, and
 checked integer/decimal overflow sets the query's error lane
@@ -70,17 +74,74 @@ def _take(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return tbl[idx.long().clamp(0, max(tbl.shape[0] - 1, 0))]
 
 
+class DictCacheStats:
+    """`computed` grows by one each time `_dict_cached` builds a result
+    from a dictionary's words (a warm query adds none)."""
+
+    def __init__(self):
+        self.computed = 0
+
+
+DICT_CACHE = DictCacheStats()
+_DERIVED_MAX = 256      # results kept per dictionary, oldest dropped first
+
+
+def _dict_cached(d: Optional[StringDict], key: tuple, build):
+    """`build()`'s result for dictionary `d` under `key` (the kind, the
+    function's name, its literal arguments and the device), built once
+    and kept in `d.derived`. The cache lives on the dictionary, so it is
+    freed with it; a dictionary in a key is held by the entry, so no key
+    can meet a recycled id. An INSERT that adds words makes a new union
+    dictionary, whose cache starts empty."""
+    if d is None:
+        DICT_CACHE.computed += 1
+        return build()
+    cache = d.derived
+    if cache is None:
+        cache = d.derived = {}
+    hit = cache.get(key)
+    if hit is not None:
+        return hit
+    DICT_CACHE.computed += 1
+    hit = build()
+    if len(cache) >= _DERIVED_MAX:
+        cache.pop(next(iter(cache)))
+    cache[key] = hit
+    return hit
+
+
+_LITERAL_DICTS: dict = {}
+_LITERAL_MAX = 4096
+
+
+def _literal_dict(value: Optional[str]) -> StringDict:
+    """The one-word dictionary of a string literal (empty for NULL), the
+    same object for the same value, so the merges with it stay cached."""
+    d = _LITERAL_DICTS.get(value)
+    if d is None:
+        if len(_LITERAL_DICTS) >= _LITERAL_MAX:
+            _LITERAL_DICTS.pop(next(iter(_LITERAL_DICTS)))
+        d = _LITERAL_DICTS[value] = StringDict(
+            [] if value is None else [value])
+    return d
+
+
 def _merge_dicts(a: StringDict, b: StringDict, device):
     """Merge two sorted dictionaries; returns (merged, map_a, map_b) where
-    map_x[i] is the merged code of x's word i. Host-side."""
-    wa = np.asarray(a.words, dtype=object)
-    wb = np.asarray(b.words, dtype=object)
-    merged = sorted(set(a.words) | set(b.words))
-    md = StringDict(merged)
-    marr = np.asarray(merged, dtype=object)
-    map_a = np.searchsorted(marr.astype(str), wa.astype(str)).astype(np.int32)
-    map_b = np.searchsorted(marr.astype(str), wb.astype(str)).astype(np.int32)
-    return md, _table(map_a, device), _table(map_b, device)
+    map_x[i] is the merged code of x's word i. Host-side, once per pair
+    and device."""
+    def build():
+        wa = np.asarray(a.words, dtype=object)
+        wb = np.asarray(b.words, dtype=object)
+        merged = sorted(set(a.words) | set(b.words))
+        md = StringDict(merged)
+        marr = np.asarray(merged, dtype=object)
+        map_a = np.searchsorted(marr.astype(str),
+                                wa.astype(str)).astype(np.int32)
+        map_b = np.searchsorted(marr.astype(str),
+                                wb.astype(str)).astype(np.int32)
+        return md, _table(map_a, device), _table(map_b, device)
+    return _dict_cached(a, ("merge", b, device), build)
 
 
 def align_string_columns(x: Column, y: Column):
@@ -258,10 +319,12 @@ def _cast(col: Column, to: Type, valid=None) -> Column:
                 _check_int_range(v, tdt)
             return Column(v.to(tdt), n, to)
     if to == DATE and frm.is_string:
-        words = col.dictionary.words
-        mapped = np.array([_parse_date_host(w) for w in words],
-                          dtype=np.int32)
-        return Column(_take(_table(mapped, v.device), v), n, to)
+        mapped = _dict_cached(col.dictionary, ("cast_date", v.device),
+                              lambda: _table(np.array(
+                                  [_parse_date_host(w)
+                                   for w in col.dictionary.words],
+                                  dtype=np.int32), v.device))
+        return Column(_take(mapped, v), n, to)
     if to == TIMESTAMP and frm == DATE:
         return Column(v.to(torch.int64) * 86_400_000_000, n, to)
     if to == BOOLEAN and (frm.is_integer or frm.is_floating):
@@ -393,9 +456,8 @@ def compile_expr(expr: RowExpression) -> Compiled:
 def _literal_column(e: Literal, cap: int, device) -> Column:
     t = e.type
     if t.is_string:
-        if e.value is None:
-            return _const_column(None, t, cap, device, StringDict([]))
-        return _const_column(0, t, cap, device, StringDict([e.value]))
+        return _const_column(None if e.value is None else 0, t, cap, device,
+                             _literal_dict(e.value))
     if isinstance(t, DecimalType) and t.uses_int128:
         # decimal literals are stored UNSCALED in the Literal
         if e.value is None:
@@ -437,16 +499,34 @@ def _special(e: SpecialForm, page: Page, ev) -> Column:
         c = ev(e.args[0], page)
         t = ev(e.args[1], page)
         el = ev(e.args[2], page)
+        take_then = ~c.nulls & _truthy(c)
+        if _is_wide_type(e.type):
+            return _choose_wide(e.type, page, [(t, take_then),
+                                               (el, ~take_then)])
+        if _is_wide(t) or _is_wide(el):
+            # a DECIMAL(38) branch of a narrower result (DOUBLE): cast,
+            # range-checked on the rows that take the branch
+            t = _cast(t, e.type, _valid_rows(page, t) & take_then)
+            el = _cast(el, e.type, _valid_rows(page, el) & ~take_then)
         if t.type.is_string and el.type.is_string:
             t, el = align_string_columns(t, el)
         elif t.type != el.type:
             t, el = _common_numeric(t, el)
-        take_then = ~c.nulls & _truthy(c)
         return Column(torch.where(take_then, t.values, el.values),
                       torch.where(take_then, t.nulls, el.nulls),
                       t.type, t.dictionary)
     if f == Form.COALESCE:
         cols = [ev(a, page) for a in e.args]
+        if _is_wide_type(e.type):
+            picks, left = [], None
+            for c in cols:
+                # an argument is picked where every one before it is NULL
+                picks.append((c, ~c.nulls if left is None
+                              else left & ~c.nulls))
+                left = c.nulls if left is None else left & c.nulls
+            return _choose_wide(e.type, page, picks)
+        if any(_is_wide(c) for c in cols):
+            cols = [_cast(c, e.type, _valid_rows(page, c)) for c in cols]
         out = cols[0]
         for c in cols[1:]:
             if out.type.is_string:
@@ -465,6 +545,32 @@ def _special(e: SpecialForm, page: Page, ev) -> Column:
         any_null = reduce(torch.logical_or, [c.nulls for c in eqs])
         return _bool(val, ~val & (any_null | v.nulls))
     raise NotImplementedError(f"special form {f}")
+
+
+def _is_wide_type(t: Type) -> bool:
+    return isinstance(t, DecimalType) and t.uses_int128
+
+
+def _choose_wide(rt: DecimalType, page: Page, picks) -> Decimal128Column:
+    """IF, CASE and COALESCE over DECIMAL(p>18): `picks` is a list of
+    (column, rows where it is chosen), the rows disjoint. Each column is
+    widened to the result's type (a narrow decimal or integer through
+    `_cast_wide`, K10 on the card; overflow checked only on the rows that
+    choose it, as a lazy CASE would), then chosen limb lane by limb lane;
+    NULL rows get zero lanes, as `_arith_wide` leaves them."""
+    lanes = [None] * 4
+    nulls = None
+    for c, take in picks:
+        w = _cast(c, rt, _valid_rows(page, c) & take)
+        for i, lane in enumerate(w.value_lanes):
+            lanes[i] = lane if lanes[i] is None else torch.where(
+                take, lane, lanes[i])
+        nulls = w.nulls if nulls is None else torch.where(take, w.nulls,
+                                                          nulls)
+    # a row that chooses no column (every COALESCE argument NULL) keeps
+    # the first column's NULL
+    return Decimal128Column(*[torch.where(nulls, 0, lane) for lane in lanes],
+                            nulls, rt)
 
 
 def _and2(a: Column, b: Column) -> Column:
@@ -622,26 +728,32 @@ def _arith_wide(op: str, rt, x, y, nulls, valid) -> Decimal128Column:
     return Decimal128Column(*lanes, nulls, rt)
 
 
-def _dict_transform(col: Column, fn) -> Column:
+def _dict_transform(col: Column, key: tuple, fn) -> Column:
     """Apply a host string->string fn over the dictionary, producing a new
-    sorted dictionary + device code remap (one gather)."""
-    words = [fn(w) for w in col.dictionary.words]
+    sorted dictionary + device code remap (one gather). `key` names fn
+    and its literal arguments: the cache key (`_dict_cached`)."""
     dev = col.values.device
-    if words:
-        newd, codes = StringDict.build(words)
-        remap = _table(codes, dev)
-    else:
-        newd = StringDict([])
-        remap = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def build():
+        words = [fn(w) for w in col.dictionary.words]
+        if words:
+            newd, codes = StringDict.build(words)
+            return newd, _table(codes, dev)
+        return StringDict([]), torch.zeros(1, dtype=torch.int32, device=dev)
+    newd, remap = _dict_cached(col.dictionary, ("transform",) + key + (dev,),
+                               build)
     return Column(_take(remap, col.values), col.nulls, col.type, newd)
 
 
-def _dict_predicate(col: Column, fn) -> Column:
-    """Host predicate over dictionary words -> device boolean via gather."""
-    words = col.dictionary.words
-    if not words:
+def _dict_predicate(col: Column, key: tuple, fn) -> Column:
+    """Host predicate over dictionary words -> device boolean via gather
+    (`key` as for _dict_transform)."""
+    if not col.dictionary.words:
         return _bool(torch.zeros_like(col.nulls), col.nulls)
-    tbl = _table(np.array([bool(fn(w)) for w in words]), col.values.device)
+    dev = col.values.device
+    tbl = _dict_cached(col.dictionary, ("predicate",) + key + (dev,),
+                       lambda: _table(np.array([bool(fn(w)) for w in
+                                                col.dictionary.words]), dev))
     return _bool(_take(tbl, col.values), col.nulls)
 
 
@@ -653,32 +765,38 @@ def _as_f64(col: Column) -> torch.Tensor:
     return v
 
 
-def _dict_transform_nullable(col: Column, fn) -> Column:
+def _dict_transform_nullable(col: Column, key: tuple, fn) -> Column:
     """Like _dict_transform, but fn may return None: those codes become
     NULL rows."""
-    words = col.dictionary.words if col.dictionary else ()
     dev = col.values.device
-    out = [fn(w) for w in words]
-    null_tbl = np.array([o is None for o in out], dtype=bool)
-    filled = ["" if o is None else o for o in out]
-    if filled:
-        newd, codes = StringDict.build(filled)
-        nv = _take(_table(codes, dev), col.values)
-        extra_null = _take(_table(null_tbl, dev), col.values)
-    else:
-        newd = StringDict([])
-        nv = torch.zeros_like(col.values)
-        extra_null = torch.zeros_like(col.nulls)
-    return Column(nv, col.nulls | extra_null, col.type, newd)
+
+    def build():
+        words = col.dictionary.words if col.dictionary else ()
+        out = [fn(w) for w in words]
+        if not out:
+            return StringDict([]), None, None
+        null_tbl = np.array([o is None for o in out], dtype=bool)
+        newd, codes = StringDict.build(["" if o is None else o for o in out])
+        return newd, _table(codes, dev), _table(null_tbl, dev)
+    newd, remap, null_tbl = _dict_cached(
+        col.dictionary, ("nullable",) + key + (dev,), build)
+    if remap is None:
+        return Column(torch.zeros_like(col.values), col.nulls, col.type,
+                      newd)
+    return Column(_take(remap, col.values),
+                  col.nulls | _take(null_tbl, col.values), col.type, newd)
 
 
-def _dict_int(col: Column, fn) -> Column:
+def _dict_int(col: Column, key: tuple, fn) -> Column:
     """Host string->int fn over the dictionary -> device BIGINT gather."""
-    words = col.dictionary.words if col.dictionary else ()
-    tbl = (np.array([int(fn(w)) for w in words], np.int64)
-           if words else np.zeros(1, np.int64))
-    return Column(_take(_table(tbl, col.values.device), col.values),
-                  col.nulls, BIGINT)
+    dev = col.values.device
+
+    def build():
+        words = col.dictionary.words if col.dictionary else ()
+        return _table(np.array([int(fn(w)) for w in words], np.int64)
+                      if words else np.zeros(1, np.int64), dev)
+    tbl = _dict_cached(col.dictionary, ("int",) + key + (dev,), build)
+    return Column(_take(tbl, col.values), col.nulls, BIGINT)
 
 
 def _days_from_civil_dev(y, m, d):
@@ -784,28 +902,34 @@ def _call(e: Call, page: Page, ev) -> Column:
             raise NotImplementedError("LIKE pattern must be a literal")
         esc = e.args[2].value if len(e.args) > 2 else None
         rx = _like_regex(pat.value, esc)
-        return _dict_predicate(c, lambda w: rx.match(w) is not None)
+        return _dict_predicate(c, ("like", pat.value, esc),
+                               lambda w: rx.match(w) is not None)
     if name == "substr":
         c = ev(e.args[0], page)
         start = e.args[1].value  # 1-based, literal
         length = e.args[2].value if len(e.args) > 2 else None
-        if length is None:
-            return _dict_transform(c, lambda w: w[start - 1:])
-        return _dict_transform(c, lambda w: w[start - 1:start - 1 + length])
+        return _dict_transform(
+            c, ("substr", start, length),
+            lambda w: w[start - 1:] if length is None
+            else w[start - 1:start - 1 + length])
     if name in ("lower", "upper", "trim", "ltrim", "rtrim"):
         c = ev(e.args[0], page)
         fn = {"lower": str.lower, "upper": str.upper, "trim": str.strip,
               "ltrim": str.lstrip, "rtrim": str.rstrip}[name]
-        return _dict_transform(c, fn)
+        return _dict_transform(c, (name,), fn)
     if name == "length":
         c = ev(e.args[0], page)
-        return _dict_int(c, len)
+        return _dict_int(c, (name,), len)
     if name == "concat":
         a, b = ev(e.args[0], page), ev(e.args[1], page)
         if isinstance(e.args[1], Literal):
-            return _dict_transform(a, lambda w: w + e.args[1].value)
+            suffix = e.args[1].value
+            return _dict_transform(a, ("concat_suffix", suffix),
+                                   lambda w: w + suffix)
         if isinstance(e.args[0], Literal):
-            return _dict_transform(b, lambda w: e.args[0].value + w)
+            prefix = e.args[0].value
+            return _dict_transform(b, ("concat_prefix", prefix),
+                                   lambda w: prefix + w)
         # column || column: the result dictionary is the sorted cross
         # product of both dictionaries with a host-built (ca, cb) ->
         # combined-code table; the per-row work is one gather
@@ -815,16 +939,21 @@ def _call(e: Call, page: Page, ev) -> Column:
             raise NotImplementedError(
                 f"concat dictionary product too large "
                 f"({len(aw)}x{len(bw)})")
-        pairs = [x + y for x in aw for y in bw]
-        union = sorted(set(pairs))
-        uarr = np.asarray(union, dtype=object).astype(str)
-        lut = np.searchsorted(
-            uarr, np.asarray(pairs, dtype=object).astype(str)
-        ).astype(np.int32)
+
+        def build():
+            pairs = [x + y for x in aw for y in bw]
+            union = sorted(set(pairs))
+            uarr = np.asarray(union, dtype=object).astype(str)
+            lut = np.searchsorted(
+                uarr, np.asarray(pairs, dtype=object).astype(str)
+            ).astype(np.int32)
+            return StringDict(union), _table(lut, dev)
+        union, lut = _dict_cached(a.dictionary,
+                                  ("concat", b.dictionary, dev), build)
         ca = a.values.long().clamp(0, len(aw) - 1)
         cb = b.values.long().clamp(0, len(bw) - 1)
-        v = _take(_table(lut, dev), ca * len(bw) + cb)
-        return Column(v, a.nulls | b.nulls, VARCHAR, StringDict(union))
+        v = _take(lut, ca * len(bw) + cb)
+        return Column(v, a.nulls | b.nulls, VARCHAR, union)
     if name in ("sqrt", "ln", "log10", "exp", "floor", "ceil", "round"):
         c = ev(e.args[0], page)
         if name == "round" and len(e.args) > 1:
@@ -862,16 +991,18 @@ def _call(e: Call, page: Page, ev) -> Column:
         c = ev(e.args[0], page)
         find = _litstr(1, "search")
         repl = _litstr(2, "replacement") if len(e.args) > 2 else ""
-        return _dict_transform(c, lambda w: w.replace(find, repl))
+        return _dict_transform(c, (name, find, repl),
+                               lambda w: w.replace(find, repl))
     if name == "reverse":
         c = ev(e.args[0], page)
-        return _dict_transform(c, lambda w: w[::-1])
+        return _dict_transform(c, (name,), lambda w: w[::-1])
     if name in ("lpad", "rpad"):
         c = ev(e.args[0], page)
         size = _litint(1, "size")
         pad = _litstr(2, "padstring") if len(e.args) > 2 else " "
         left = name == "lpad"
-        return _dict_transform(c, lambda w: _pad_word(w, size, pad, left))
+        return _dict_transform(c, (name, size, pad),
+                               lambda w: _pad_word(w, size, pad, left))
     if name == "split_part":
         c = ev(e.args[0], page)
         delim = _litstr(1, "delimiter")
@@ -882,40 +1013,45 @@ def _call(e: Call, page: Page, ev) -> Column:
         def part(w):
             ps = w.split(delim) if delim else [w]
             return ps[index - 1] if index <= len(ps) else None
-        return _dict_transform_nullable(c, part)
+        return _dict_transform_nullable(c, (name, delim, index), part)
     if name == "strpos":
         c = ev(e.args[0], page)
         sub = _litstr(1, "substring")
-        return _dict_int(c, lambda w: w.find(sub) + 1)
+        return _dict_int(c, (name, sub), lambda w: w.find(sub) + 1)
     if name == "starts_with":
         c = ev(e.args[0], page)
         pre = _litstr(1, "prefix")
-        return _dict_predicate(c, lambda w: w.startswith(pre))
+        return _dict_predicate(c, (name, pre), lambda w: w.startswith(pre))
     if name == "regexp_like":
         c = ev(e.args[0], page)
-        rx = _regex_cache(_litstr(1, "pattern"))
-        return _dict_predicate(c, lambda w: rx.search(w) is not None)
+        pattern = _litstr(1, "pattern")
+        rx = _regex_cache(pattern)
+        return _dict_predicate(c, (name, pattern),
+                               lambda w: rx.search(w) is not None)
     if name == "regexp_extract":
         c = ev(e.args[0], page)
-        rx = _regex_cache(_litstr(1, "pattern"))
+        pattern = _litstr(1, "pattern")
+        rx = _regex_cache(pattern)
         group = _litint(2, "group") if len(e.args) > 2 else 0
 
         def extract(w):
             m = rx.search(w)
             return m.group(group) if m else None
-        return _dict_transform_nullable(c, extract)
+        return _dict_transform_nullable(c, (name, pattern, group), extract)
     if name == "regexp_replace":
         c = ev(e.args[0], page)
-        rx = _regex_cache(_litstr(1, "pattern"))
+        pattern = _litstr(1, "pattern")
+        rx = _regex_cache(pattern)
         repl = _litstr(2, "replacement") if len(e.args) > 2 else ""
         # Presto capture refs are $1; python's are \1
         py_repl = re.sub(r"\$(\d+)", r"\\\1", repl)
-        return _dict_transform(c, lambda w: rx.sub(py_repl, w))
+        return _dict_transform(c, (name, pattern, repl),
+                               lambda w: rx.sub(py_repl, w))
     if name == "json_extract_scalar":
         c = ev(e.args[0], page)
         path = _litstr(1, "path")
         return _dict_transform_nullable(
-            c, lambda w: _json_scalar_path(w, path))
+            c, (name, path), lambda w: _json_scalar_path(w, path))
     if name.startswith("url_extract_"):
         c = ev(e.args[0], page)
         part = name[len("url_extract_"):]
@@ -932,23 +1068,26 @@ def _call(e: Call, page: Page, ev) -> Column:
             return None if v in (None, "") and part != "path" else str(v)
         if part == "port":
             # NULL when absent/malformed (Presto UrlFunctions.java)
-            words = c.dictionary.words if c.dictionary else ()
-            if not words:
+            if not (c.dictionary.words if c.dictionary else ()):
                 return Column(torch.zeros_like(c.values, dtype=torch.int64),
                               torch.ones_like(c.nulls), BIGINT)
-            ports = []
-            for w in words:
-                try:
-                    ports.append(urlparse(w).port)
-                except ValueError:      # bad port -> NULL
-                    ports.append(None)
-            null_tbl = np.array([p is None for p in ports], bool)
-            val_tbl = np.array([0 if p is None else p for p in ports],
-                               np.int64)
-            v = _take(_table(val_tbl, dev), c.values)
-            extra = _take(_table(null_tbl, dev), c.values)
-            return Column(v, c.nulls | extra, BIGINT)
-        return _dict_transform_nullable(c, url_part)
+
+            def build():
+                ports = []
+                for w in c.dictionary.words:
+                    try:
+                        ports.append(urlparse(w).port)
+                    except ValueError:      # bad port -> NULL
+                        ports.append(None)
+                return (_table(np.array([0 if p is None else p
+                                         for p in ports], np.int64), dev),
+                        _table(np.array([p is None for p in ports], bool),
+                               dev))
+            val_tbl, null_tbl = _dict_cached(c.dictionary, ("int", name, dev),
+                                             build)
+            return Column(_take(val_tbl, c.values),
+                          c.nulls | _take(null_tbl, c.values), BIGINT)
+        return _dict_transform_nullable(c, (name,), url_part)
 
     # ---- date functions (operator/scalar/DateTimeFunctions.java) ---------
     if name in ("date_trunc", "day_of_week", "day_of_year", "quarter",

@@ -328,9 +328,12 @@ def common_super_type(a: Type, b: Type) -> Optional[Type]:
         return a
     order = ["tinyint", "smallint", "integer", "bigint", "real", "double"]
     if a.is_decimal and b.is_decimal:
+        # up to 38 digits, as Presto's decimal super type; the JAX package
+        # caps it at 18 here, which truncates a DECIMAL(38) branch of a
+        # CASE or COALESCE (ROADMAP Queue 3)
         scale = max(a.scale, b.scale)
         intd = max(a.precision - a.scale, b.precision - b.scale)
-        return DecimalType(min(18, intd + scale), scale)
+        return DecimalType(min(38, intd + scale), scale)
     if a.is_decimal and b.name in order:
         return DOUBLE if b.is_floating else a
     if b.is_decimal and a.name in order:

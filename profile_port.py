@@ -18,10 +18,12 @@ named queries):
 once cold (column uploads, capacity retries), WARM times warm and timed,
 once warm under torch.profiler. Prints per query the median warm wall time,
 the device busy time (the union of kernel and copy intervals in the
-trace) beside the traced run's wall time, the device time by kind
-(sorts: cub radix sorts; gathers: torch's index kernels; hand-written:
-the __global__ functions of presto_tpu_torch/csrc, by source; other:
-every other kernel and copy) and of the heaviest kernels; with --out,
+trace) beside the traced run's wall time, the dictionary transforms
+computed in the warm runs (expr/compile.DICT_CACHE), the device time by
+kind (sorts: cub radix sorts; gathers: torch's index kernels;
+hand-written: the __global__ functions of presto_tpu_torch/csrc, by
+source; other: every other kernel and copy) and of the heaviest kernels;
+with --out,
 writes the same as JSON, with the device time of every kernel. Fails
 where there is no CUDA device.
 """
@@ -102,7 +104,10 @@ def profile_query(engine, sql: str, as_page: bool = False) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from presto_tpu_torch.expr.compile import DICT_CACHE
+
     run_query(engine, sql, as_page)              # cold
+    computed = DICT_CACHE.computed
     walls = []
     for _ in range(WARM):                        # warm, timed
         torch.cuda.synchronize()
@@ -114,6 +119,7 @@ def profile_query(engine, sql: str, as_page: bool = False) -> dict:
         t = time.perf_counter()
         run_query(engine, sql, as_page)
         traced_ms = (time.perf_counter() - t) * 1e3
+    warm_transforms = DICT_CACHE.computed - computed
     intervals, by_name = [], {}
     for ev in prof.events():
         if ev.device_type.name != "CUDA":
@@ -129,6 +135,7 @@ def profile_query(engine, sql: str, as_page: bool = False) -> dict:
             "device_busy_ms": busy_ms,
             "busy_share": busy_ms / traced_ms if traced_ms else None,
             "device_events": len(intervals),
+            "warm_transforms": warm_transforms,
             "top_kernels_ms": [(n, us / 1e3) for n, us in heavy],
             "by_kind_ms": by_kind({n: us / 1e3 for n, us in by_name.items()}),
             "kernels_ms": {n: us / 1e3 for n, us in by_name.items()}}
@@ -176,7 +183,9 @@ def main() -> int:
         print(f"{name}: warm wall median {r['wall_ms']:.2f} ms (min "
               f"{min(r['wall_ms_all']):.2f}), device busy "
               f"{r['device_busy_ms']:.2f} ms of {r['traced_wall_ms']:.2f} "
-              f"ms traced ({r['device_events']} device events); by kind "
+              f"ms traced ({r['device_events']} device events, "
+              f"{r['warm_transforms']} dictionary transforms computed in "
+              f"the warm runs); by kind "
               + ", ".join(f"{k} {v:.3f}" for k, v in r["by_kind_ms"].items()))
         for kname, ms in r["top_kernels_ms"]:
             print(f"    {ms:9.3f} ms  {kname[:90]}")

@@ -5,8 +5,9 @@ presto_tpu_torch's LocalEngine(device="cpu") over TPC-H SF 0.01, and the
 rows are compared with tests/oracle.assert_rows_match at float_tol=1e-6
 (sorted unless the query has ORDER BY). Also: the two TPC-H generators
 give identical tables, the checked-arithmetic lane raises the same error,
-a window query raises NotImplementedError (windows are a later slice),
-and with no card the engine refuses to run unless it is given the CPU.
+EXPLAIN ANALYZE and materialized views raise NotImplementedError (later
+slices), and with no card the engine refuses to run unless it is given
+the CPU.
 The join queries are in tests/test_torch_tpch.py.
 """
 
@@ -147,15 +148,19 @@ def test_checked_arithmetic_matches_jax(engines, case):
 
 
 def test_join_raises_not_implemented(engines):
-    """Joins, windows and the approximate aggregates run; a part still
-    unported (materialized CTEs here) raises NotImplementedError naming a
-    later slice."""
-    from presto_tpu_torch.config import Session
+    """Joins, windows, the approximate aggregates, the statement path and
+    materialized CTEs run; a part still unported (EXPLAIN ANALYZE and
+    materialized views here) raises NotImplementedError naming a later
+    slice."""
+    from presto_tpu_torch.connectors import MemoryConnector
     _ref, port = engines
     with pytest.raises(NotImplementedError, match="later slice"):
-        LocalEngine(port.connector,
-                    session=Session({"cte_materialization_enabled": "true"}),
-                    device="cpu")
+        port.execute_sql("explain analyze select count(*) from nation")
+    writable = LocalEngine(MemoryConnector(fallback=port.connector),
+                           device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        writable.execute_sql("create materialized view mv as "
+                             "select count(*) from nation")
 
 
 def test_engine_needs_a_card_unless_given_the_cpu(monkeypatch):

@@ -1573,3 +1573,33 @@ def test_approx_queries_on_the_card_match_the_cpu(cuda):
         assert got and sorted(got) == sorted(cpu.execute_sql(sql))
     assert A.hll_registers.launches > before[0]
     assert A.segment_select.launches > before[1]
+
+
+def test_statement_path_on_the_card_matches_the_cpu(cuda):
+    """chip_smoke.py's phase 4f at SF 0.01: CREATE TABLE AS, INSERT,
+    DELETE, queries over the written table, EXPLAIN, q15 materialized and
+    DROP on the card against the CPU and numpy (statement_path fails on
+    any difference), K1, K2, K4 and K5 launched."""
+    from chip_smoke import statement_path
+    from presto_tpu_torch.connectors import TpchConnector
+    from presto_tpu_torch.data.int128 import int128_op
+    launches = statement_path(TpchConnector(0.01), [
+        A.direct_agg, C.compact_indices, K.hash_columns, J.join_probe,
+        S.segment_reduce, int128_op])
+    assert launches["direct_agg"] and launches["join_probe"]
+
+
+def test_warm_queries_compute_no_transform_on_the_card(cuda):
+    """q13's LIKE and q22's substring and literal merges are built once
+    per dictionary and device: the warm runs on the card compute none and
+    give the cold rows."""
+    from chip_smoke import tpch_queries
+    from presto_tpu_torch.connectors import TpchConnector
+    from presto_tpu_torch.exec.engine import LocalEngine
+    from presto_tpu_torch.expr.compile import DICT_CACHE
+    engine = LocalEngine(TpchConnector(0.01))
+    for q in (13, 22):
+        cold = engine.execute_sql(tpch_queries()[q])
+        before = DICT_CACHE.computed
+        assert engine.execute_sql(tpch_queries()[q]) == cold
+        assert DICT_CACHE.computed == before
