@@ -27,8 +27,10 @@ Phases, each fatal on failure, each printing its seconds:
      a4's seven groups of 0.86M rows, K13 segment_select on phase 4e's
      unsorted lanes: a1's l_quantity (global), a2's l_extendedprice over
      its bins, a3's l_discount over 10,000 runs and a4's l_shipdate over
-     seven, a1's also against torch.kthvalue) at the shapes SF1 gives it
-     on the main path
+     seven, a1's also against torch.kthvalue; the merge modes of K1
+     (global) and K3 (segment_merge128) on partial states of spec-typed
+     q01's 8 x 4 shape and of 8 x 1.5M seeded rows, merge128_cases) at
+     the shapes SF1 gives it on the main path
      (K1-K3 on seeded numpy data; K4-K6 on q13's join of customer with
      orders, K6 also with the build side in key order, at half its
      capacity and on a skewed probe side with one row of 2^20 pairs; K7 on TPC-DS q51's largest window input and on orders
@@ -116,6 +118,18 @@ Phases, each fatal on failure, each printing its seconds:
         against the CPU's, the EXPLAIN text against the CPU's, q15
         materialized against q15 inlined; K1, K2, K4 and K5 must have been
         launched here, and K3 and K10 across phases c and f;
+     g. the bounded path (bounded_path): q01 and the q18 block with
+        lifespan_batches=8, held against the same query run whole on the
+        card and the engine on the CPU batched; spec-typed q01 and q06
+        over the DECIMAL(12,2) lineitem batched in 8 lifespans and
+        spilled to LZ4 frames in a temporary directory, held Decimal for
+        Decimal against the run whole on the card and numpy int64
+        arithmetic (the merge modes of K3 and K1 launched); q01 under a
+        MemoryPool of a quarter of its footprint (at least 2 lifespans,
+        rows equal, peak device memory below the run whole's, both
+        printed); and GRACE_SQL under a pool that refuses it, through
+        the Grace spill join (at least 2 partitions with rows, rows equal
+        to the run whole; K4 and K5 launched there);
   5. all 22 TPC-H queries at SF 0.01 and all 99 TPC-DS queries at SF
      0.002 on the card, cold and warm, the window and grouping-set
      queries of tests/test_window_outer.py and tests/test_grouping_sets.py
@@ -130,7 +144,7 @@ Phases, each fatal on failure, each printing its seconds:
 
 The JSON kernel report is printed two lines before the end, then the
 card's name and power limit, then {"ok": true, "device": {...}} as the
-last line; each kernel's `launches` there is its count over the six
+last line; each kernel's `launches` there is its count over the seven
 main paths of phase 4. Imports nothing of JAX or presto_tpu: the query lists
 of the test files are read from their source with `ast`.
 """
@@ -141,6 +155,7 @@ import ast
 import datetime
 import importlib.util
 import json
+import os
 import re
 import subprocess
 import sys
@@ -252,6 +267,11 @@ TPCDS_MAIN = (47, 51, 67, 70, 16, 75, 97)
 DECIMAL_MAIN = (1, 3, 6, 10, 14, 19)
 RTOL_F64 = 1e-15                   # K10's to_double: torch divides by a
                                    # scalar through its reciprocal
+BOUNDED_BATCHES = 8                # lifespans of the bounded path (4g)
+#: phase 4g's join-rooted query, run through the Grace spill join
+GRACE_SQL = ("select l_orderkey, l_extendedprice, o_orderdate "
+             "from lineitem, orders where l_orderkey = o_orderkey "
+             "and o_totalprice > 450000")
 
 #: TPC-H SF1 queries of the breadth path: name -> (SQL, page compared
 #: column by column instead of as Python rows: millions of output rows)
@@ -1095,6 +1115,111 @@ def kernel_segment_sum128(rng, dev, repeat):
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
             "library_ms": None}
+
+
+def merge128_cases(rng, dev) -> list:
+    """The final merges' inputs (sum128_merge/avg128_merge over DECIMAL(38)
+    partial states): the limb lanes of the states (`_wide_values`: the
+    full +-(10^38-1) range and the 2 x 9.9e37 rows), NULL states, the
+    partial count column with NULLs, and group runs of BOUNDED_BATCHES
+    rows, one partial a lifespan. Spec-typed q01's 8 x 4 partial rows and
+    8 x 1.5M seeded partial rows (the q18 block's groups), the latter
+    with about 1% of its groups all NULL."""
+    import torch
+    out = []
+    for name, groups in (("q01 spec-typed partials, 8 x 4", 4),
+                         ("seeded partials, 8 x 1.5M", 1_500_000)):
+        n = BOUNDED_BATCHES * groups
+        cap = 256 if n <= 256 else 1 << (n - 1).bit_length()
+        lanes = _wide_values(rng, cap, dev, n)
+        nulls = rng.random(cap) < 0.1
+        nulls[n:] = True
+        nulls[n - 3:n] = False          # the 2 x 9.9e37 rows are live
+        dead = rng.random(groups) < 0.01
+        nulls[:n] |= np.repeat(dead, BOUNDED_BATCHES)
+        counts = np.where(nulls, 0, rng.integers(1, 10 ** 6, cap))
+        cnulls = rng.random(cap) < 0.02
+        starts = torch_from(np.arange(groups, dtype=np.int64)
+                            * BOUNDED_BATCHES, dev)
+        row = torch.arange(cap, device=dev)
+        out.append({
+            "case": name, "cap": cap, "n": n, "lanes": lanes,
+            "nulls": torch_from(nulls, dev),
+            "counts": torch_from(counts, dev),
+            "cnulls": torch_from(cnulls, dev), "valid": row < n,
+            "starts": starts, "ends": starts + BOUNDED_BATCHES})
+    return out
+
+
+def run_merge128_case(c, repeat) -> dict:
+    """K1's and K3's merges of one case against their plain versions:
+    live states, limb sums and the count column's sum exact. K1 takes the
+    case as a global merge (one bin), K3 as group runs."""
+    import torch
+    from presto_tpu_torch.ops import aggregate as A
+    from presto_tpu_torch.ops import scan as S
+    cap, n = c["cap"], c["n"]
+    num_rows = torch.tensor(n, dtype=torch.int64, device=c["nulls"].device)
+    inputs = [(c["lanes"], c["nulls"], A.WANT_SUM128 | A.WANT_MERGE128),
+              (c["counts"], c["cnulls"], A.WANT_SUM)]
+    live, clive = ~c["nulls"] & c["valid"], ~c["cnulls"] & c["valid"]
+
+    def k1():
+        return A.direct_agg(cap, num_rows, [], [], inputs)
+
+    def k1_plain():
+        return A._direct_agg_plain(cap, num_rows, [], [], inputs, None)
+
+    def k3():
+        return S.segment_merge128(c["lanes"], live, c["starts"], c["ends"],
+                                  c["counts"], clive)
+
+    def k3_plain():
+        return S._segment_merge128_plain(c["lanes"], live, c["starts"],
+                                         c["ends"], c["counts"], clive)
+
+    k, p = k1(), k1_plain()
+    for key in ("rows", "cnt", "isum", "lsum"):
+        if not exact(k[key], p[key]):
+            fail(f"direct_agg merge ({c['case']}): {key} differs from the "
+                 f"plain version")
+    k, p = k3(), k3_plain()
+    for key in ("cnt", "lsum", "csum"):
+        if not exact(k[key], p[key]):
+            fail(f"segment_merge128 ({c['case']}): {key} differs from the "
+                 f"plain version")
+    g = c["starts"].shape[0]
+    # per row four lanes, the state's null flag, the count and its null
+    # flag read once; K3 also each run's start and end, and its count,
+    # four limb sums and count sum written
+    return {"case": c["case"], "rows": n, "groups": g, "max_abs_err": 0.0,
+            "k1_ms": cuda_time_ms(k1, repeat),
+            "k1_plain_ms": cuda_time_ms(k1_plain, max(repeat // 4, 2)),
+            "k1_bound_ms": n * 42 / HBM_BYTES_PER_S * 1e3,
+            "k3_ms": cuda_time_ms(k3, repeat),
+            "k3_plain_ms": cuda_time_ms(k3_plain, max(repeat // 4, 2)),
+            "k3_bound_ms": (n * 42 + g * 64) / HBM_BYTES_PER_S * 1e3}
+
+
+def kernel_merge128(rng, dev, repeat) -> list:
+    """The merge modes of K1 (global) and K3 (sorted) at merge128_cases'
+    two shapes, each line printed; the kernel lines are the 8 x 1.5M
+    shape. torch has no 128-bit integer type, so no library call."""
+    lines = [run_merge128_case(c, repeat) for c in merge128_cases(rng, dev)]
+    print("merge128 cases: " + json.dumps(lines), flush=True)
+    big = lines[-1]
+    return [{"name": "direct_agg_merge128", "route": "cuda",
+             "source": "presto_tpu_torch/csrc/direct_agg.cu",
+             "replaces": "presto_tpu/ops/aggregate.py:197",
+             "max_abs_err": 0.0, "ms": big["k1_ms"],
+             "plain_ms": big["k1_plain_ms"], "bound_ms": big["k1_bound_ms"],
+             "bound_by": "bytes", "library_ms": None},
+            {"name": "segment_reduce_merge128", "route": "cuda",
+             "source": "presto_tpu_torch/csrc/segment_reduce.cu",
+             "replaces": "presto_tpu/ops/aggregate.py:556",
+             "max_abs_err": 0.0, "ms": big["k3_ms"],
+             "plain_ms": big["k3_plain_ms"], "bound_ms": big["k3_bound_ms"],
+             "bound_by": "bytes", "library_ms": None}]
 
 
 def _q13_join_inputs(conn, dev):
@@ -2810,23 +2935,23 @@ def breadth_path(ds_conn, h_conn, counters) -> dict:
 
 
 class ModeCount:
-    """A kernel mode's launch count (the wrapper's `sum128_launches`, or
-    with `mode` its entry of `mode_launches`), read and reset as a
-    wrapper's `launches` is."""
+    """A kernel mode's launch count (the wrapper's `attr`, by default
+    `sum128_launches`, or with `mode` its entry of `mode_launches`), read
+    and reset as a wrapper's `launches` is."""
 
-    def __init__(self, fn, name: str, mode=None):
-        self.fn, self.__name__, self.mode = fn, name, mode
+    def __init__(self, fn, name: str, mode=None, attr="sum128_launches"):
+        self.fn, self.__name__, self.mode, self.attr = fn, name, mode, attr
 
     @property
     def launches(self) -> int:
         if self.mode is None:
-            return self.fn.sum128_launches
+            return getattr(self.fn, self.attr)
         return self.fn.mode_launches[self.mode]
 
     @launches.setter
     def launches(self, v: int) -> None:
         if self.mode is None:
-            self.fn.sum128_launches = v
+            setattr(self.fn, self.attr, v)
         else:
             self.fn.mode_launches[self.mode] = v
 
@@ -3366,6 +3491,187 @@ def statement_path(conn, counters) -> dict:
     return launches
 
 
+def _drop_device_pages(conn, tables) -> None:
+    """Forget the device columns that the generated tables keep
+    (HostTable.page's cache), so that the next run uploads its scans and
+    a peak of device memory counts them."""
+    for t in tables:
+        conn.table(t).__dict__.pop("_dev_page_cache", None)
+
+
+def _peak_run(engine, sql, conn, tables):
+    """Rows, wall seconds, peak device bytes over the run and the bytes
+    allocated before it, with the tables' device columns dropped first."""
+    import torch
+    _drop_device_pages(conn, tables)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    rows = engine.execute_sql(sql)
+    torch.cuda.synchronize()
+    return rows, time.perf_counter() - t, torch.cuda.max_memory_allocated(), \
+        base
+
+
+def bounded_path(conn, counters) -> dict:
+    """Phase 4g, memory-bounded execution over `conn` (TpchConnector(1.0)
+    in the smoke), with the kernels' launch counts set to 0 just before
+    and read just after:
+    - q01 and the q18 block with lifespan_batches=BOUNDED_BATCHES, held
+      against the same query run whole on the card (floats within 1e-9
+      relative, the rest exact) and against the engine on the CPU
+      batched;
+    - spec-typed q01 and q06 over decimal_connector(conn), batched and
+      spilled to LZ4 frames in a temporary directory, held Decimal for
+      Decimal against the run whole on the card and numpy int64
+      arithmetic; K3's merge mode launched for q01, K1's for q06;
+    - the pool route: q01 under a MemoryPool of a quarter of its
+      footprint runs in at least 2 lifespans, equal to the run whole, at
+      a lower peak of device memory (the tables' device columns dropped
+      before each run);
+    - GRACE_SQL under a pool that refuses it: the Grace spill join, at
+      least 2 partitions with rows in them, rows equal to the run whole
+      (sorted); K4 and K5 launched there."""
+    import tempfile
+
+    import torch
+    from presto_tpu_torch.config import Session
+    from presto_tpu_torch.exec.engine import LocalEngine
+    from presto_tpu_torch.exec.memory import MemoryPool
+
+    names = [k.__name__ for k in counters]
+
+    def counts():
+        return dict(zip(names, [k.launches for k in counters]))
+
+    def delta(before):
+        now = counts()
+        return {k: now[k] - before[k] for k in names if now[k] - before[k]}
+
+    for k in counters:
+        k.launches = 0
+    main = main_queries()
+    batched = Session({"lifespan_batches": str(BOUNDED_BATCHES)})
+    gpu_b, whole = LocalEngine(conn, session=batched), LocalEngine(conn)
+    cpu_b = LocalEngine(conn, session=batched, device="cpu")
+    for name in ("q01", "q18_block"):
+        sql, ordered = main[name]
+        before = counts()
+        t = time.perf_counter()
+        got = gpu_b.execute_sql(sql)
+        wall = time.perf_counter() - t
+        launched = delta(before)
+        rows_match(got, whole.execute_sql(sql),
+                   f"{name} batched vs whole on the card", ordered)
+        t = time.perf_counter()
+        rows_match(got, cpu_b.execute_sql(sql),
+                   f"{name} batched card vs CPU", ordered)
+        print(f"{name} in {BOUNDED_BATCHES} lifespans: {len(got)} rows "
+              f"equal the run whole and the CPU's batched; card wall "
+              f"{wall * 1e3:.1f} ms, CPU {time.perf_counter() - t:.2f} s; "
+              f"stats {gpu_b.last_lifespan_stats}; launches {launched}",
+              flush=True)
+
+    mem = decimal_connector(conn)
+    expected = decimal_numpy_reference(mem.table("lineitem"),
+                                       mem.table("part"))
+    tpch = tpch_queries()
+    dec_whole = LocalEngine(mem)
+    with tempfile.TemporaryDirectory(prefix="bounded_spill_") as spill:
+        spilled = LocalEngine(mem, session=Session({
+            "lifespan_batches": str(BOUNDED_BATCHES),
+            "spill_enabled": "true", "spill_path": spill}))
+        for name, mode in (("q01", "segment_reduce_merge128"),
+                           ("q06", "direct_agg_merge128")):
+            sql = tpch[int(name[1:])]
+            before = counts()
+            t = time.perf_counter()
+            got = spilled.execute_sql(sql)
+            wall = time.perf_counter() - t
+            launched = delta(before)
+            st = spilled.last_lifespan_stats
+            if got != dec_whole.execute_sql(sql):
+                fail(f"spec-typed {name} batched and spilled: rows differ "
+                     f"from the run whole on the card")
+            if got != expected[name]:
+                fail(f"spec-typed {name} batched and spilled: rows differ "
+                     f"from numpy's: {got[:2]} != {expected[name][:2]}")
+            if not launched.get(mode):
+                fail(f"spec-typed {name}: {mode} was not launched")
+            if st.get("spill_files") != BOUNDED_BATCHES or os.listdir(spill):
+                fail(f"spec-typed {name}: spill files {st}, left "
+                     f"{os.listdir(spill)}")
+            print(f"spec-typed {name} in {BOUNDED_BATCHES} lifespans, "
+                  f"spilled ({st['spilled_bytes']} bytes of LZ4 frames in "
+                  f"{st['spill_files']} files): {len(got)} rows equal the "
+                  f"run whole and numpy, Decimal for Decimal; card wall "
+                  f"{wall * 1e3:.1f} ms; launches {launched}", flush=True)
+    # the DECIMAL lineitem's device columns go with its engines
+    del mem, dec_whole, spilled
+
+    q01 = main["q01"][0]
+    probe = LocalEngine(conn)
+    whole_rows = probe.execute_sql(q01)
+    estimate = probe.executor.last_memory_estimate
+    budget = estimate // 4
+    pool = MemoryPool(budget)
+    pooled = LocalEngine(conn, memory_pool=pool)
+    w_rows, w_wall, w_peak, w_base = _peak_run(LocalEngine(conn), q01, conn,
+                                               ("lineitem",))
+    before = counts()
+    p_rows, p_wall, p_peak, p_base = _peak_run(pooled, q01, conn,
+                                               ("lineitem",))
+    launched = delta(before)
+    rows_match(p_rows, whole_rows, "q01 pooled vs whole", True)
+    rows_match(w_rows, whole_rows, "q01 whole vs whole", True)
+    batches = pooled.last_memory_fallback_batches
+    if batches < 2 or pool.reserved:
+        fail(f"q01 under a pool of {budget} bytes: {batches} lifespans, "
+             f"{pool.reserved} bytes left reserved")
+    print(f"pool route: q01's footprint {estimate} bytes, pool {budget}: "
+          f"{batches} lifespans, rows equal the run whole; peak device "
+          f"memory {p_peak} bytes pooled against {w_peak} whole "
+          f"({p_base} and {w_base} allocated before: {p_peak - p_base} "
+          f"and {w_peak - w_base} above them); walls "
+          f"{p_wall * 1e3:.1f} / {w_wall * 1e3:.1f} ms; launches "
+          f"{launched}", flush=True)
+    if not p_peak < w_peak:
+        fail(f"q01 pooled peak {p_peak} is not below the run whole's "
+             f"{w_peak}")
+
+    probe = LocalEngine(conn)
+    want = sorted(probe.execute_sql(GRACE_SQL))
+    budget = probe.executor.last_memory_estimate // 4
+    grace = LocalEngine(conn, memory_pool=MemoryPool(budget))
+    before = counts()
+    t = time.perf_counter()
+    got = sorted(grace.execute_sql(GRACE_SQL))
+    wall = time.perf_counter() - t
+    launched = delta(before)
+    st = grace.last_spill_join_stats
+    rows_match(got, want, "Grace join vs whole", True)
+    if st is None or st["partitions"] < 2 or \
+            st["spill_files"] <= st["build_batches"] + st["probe_batches"]:
+        fail(f"Grace join: stats {st} (at least 2 partitions, one chunk "
+             f"split across them)")
+    for k in ("hash_columns", "join_probe"):
+        if not launched.get(k):
+            fail(f"Grace join: {k} was not launched")
+    print(f"Grace join under a pool of {budget} bytes: {len(got)} rows equal "
+          f"the run whole (sorted); stats {st}; card wall "
+          f"{wall * 1e3:.1f} ms; launches {launched}", flush=True)
+    launches = counts()
+    for k in names:
+        if not launches[k] and k in ("direct_agg", "compact_indices",
+                                     "segment_reduce", "hash_columns",
+                                     "join_probe", "direct_agg_merge128",
+                                     "segment_reduce_merge128"):
+            fail(f"kernel {k} was not launched on the bounded path")
+    torch.cuda.synchronize()
+    return launches
+
+
 def approx_phase(counters) -> None:
     """The six queries of tests/test_approx_aggs.py (read from
     tests/test_torch_approx.py, APPROX_TEST_QUERIES) at SQLITE_SF on the
@@ -3578,7 +3884,8 @@ def main() -> int:
               kernel_segment_sum128(rng, dev, REPEAT),
               kernel_unnest_expand(nested, dev, REPEAT),
               kernel_hll_registers(conn, dev, REPEAT),
-              kernel_segment_select(conn, dev, REPEAT)]
+              kernel_segment_select(conn, dev, REPEAT),
+              *kernel_merge128(rng, dev, REPEAT)]
     del q51_calls
     torch_op_rows(conn, ds_conn, dec_conn, dev, REPEAT)
     torch.cuda.synchronize()
@@ -3642,7 +3949,18 @@ def main() -> int:
     for name in ("segment_reduce", "int128_op"):
         if decimal[name] + stmts[name] == 0:
             fail(f"kernel {name} was not launched on phases 4c and 4f")
-    paths = (launches, breadth, decimal, unnest, approx, stmts)
+    bounded_counters = [
+        ModeCount(direct_agg, "direct_agg_merge128",
+                  attr="merge128_launches"),
+        ModeCount(segment_reduce, "segment_reduce_merge128",
+                  attr="merge128_launches")] + decimal_counters
+    calls.reset()
+    t0 = time.perf_counter()
+    bounded = bounded_path(conn, bounded_counters)
+    print(f"phase 4g: bounded path in {time.perf_counter() - t0:.1f} s; "
+          f"launches {bounded}; torch-op stage calls {calls.counts}",
+          flush=True)
+    paths = (launches, breadth, decimal, unnest, approx, stmts, bounded)
     for r in report:
         r["launches"] = sum(path.get(r["name"], 0) for path in paths)
     print("join_probe launches by mode on the main paths: " + json.dumps(

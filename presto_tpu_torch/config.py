@@ -14,6 +14,15 @@ def _parse_bool(s: str) -> bool:
     return s.strip().lower() in ("true", "1", "yes", "on")
 
 
+def _parse_bytes(s: str) -> int:
+    s = s.strip().upper()
+    for suffix, mult in (("GB", 1 << 30), ("MB", 1 << 20), ("KB", 1 << 10),
+                         ("B", 1)):
+        if s.endswith(suffix):
+            return int(float(s[:-len(suffix)]) * mult)
+    return int(s)
+
+
 @dataclasses.dataclass(frozen=True)
 class Property:
     name: str
@@ -23,6 +32,18 @@ class Property:
 
 
 PROPERTIES = [
+    Property("query_max_memory_per_node",
+             "Plan-footprint limit per query; exceeding it raises "
+             "MemoryLimitExceeded (or triggers lifespan batching)",
+             _parse_bytes, None),
+    Property("lifespan_batches",
+             "Row-range lifespans to stream the driving scan in "
+             "(0 = single shot)", int, 0),
+    Property("streaming_scan_rows",
+             "Bound the rows a driving leaf scan materializes at once: "
+             "each lifespan streams through the partial plan in scan "
+             "runs of at most this many rows (0 = whole-split "
+             "materialization)", int, 0),
     Property("group_count_hint",
              "Default aggregation output-capacity hint when the planner "
              "has no estimate", int, 65536),
@@ -41,6 +62,16 @@ PROPERTIES = [
              "Run inner/left/full equi-joins as the unique-build merge "
              "join first; a duplicate build key falls back to the "
              "expansion hash join", _parse_bool, True),
+    Property("spill_enabled",
+             "Offload accumulated lifespan partials out of device memory: "
+             "host RAM by default, disk when spill_path is set",
+             _parse_bool, True),
+    Property("spill_path",
+             "Directory for spill files (empty = host-RAM offload only)",
+             str.strip, ""),
+    Property("dynamic_filtering_enabled",
+             "Prune driving-scan lifespans whose join-key range cannot "
+             "match the build side", _parse_bool, True),
     Property("query_max_execution_time",
              "Wall-clock budget per query in seconds (0 = unlimited); "
              "exceeded -> the query FAILS", float, 0.0),

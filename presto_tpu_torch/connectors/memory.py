@@ -16,8 +16,9 @@ columns hold python-int unscaled values and scan as Decimal128Column limb
 lanes (connectors/tpch.HostTable.page). ARRAY/MAP/ROW columns take python
 values (lists, dicts, tuples, None), held as numpy lanes
 (data/column.NestedArrays) laid out as the JAX package's from_pylist
-lays them out, and scan as NestedColumns. Split slices, staged INSERT
-moves, row-slice views and the stream watermarks are later slices.
+lays them out, and scan as NestedColumns. A table reads whole or as
+split `part` of `num_parts` (row ranges, for lifespan batching). Staged
+INSERT moves and the stream watermarks are later slices.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 
 from presto_tpu_torch.connectors.base import SplitSource
-from presto_tpu_torch.connectors.tpch import HostTable
+from presto_tpu_torch.connectors.tpch import HostTable, _slice_rows
 from presto_tpu_torch.data.column import (
     NestedArrays, StringDict, merge_string_dicts, unscale_decimal,
 )
@@ -73,13 +74,24 @@ class MemoryConnector(SplitSource):
             return self.fallback.row_count(table)
         raise KeyError(f"unknown table {table}")
 
-    def table(self, name: str) -> HostTable:
-        t = self.tables.get(name)
-        if t is not None:
-            return t
-        if self.fallback is not None:
-            return self.fallback.table(name)
-        raise KeyError(f"unknown table {name}")
+    def table(self, name: str, part: int = 0, num_parts: int = 1
+              ) -> HostTable:
+        """The whole table, or split `part` of `num_parts` as a row-range
+        slice of it sharing its StringDicts (presto_tpu/connectors/
+        memory.py:79)."""
+        full = self.tables.get(name)
+        if full is None:
+            if self.fallback is not None:
+                return self.fallback.table(name, part, num_parts)
+            raise KeyError(f"unknown table {name}")
+        if num_parts == 1:
+            return full
+        lo, hi = _slice_rows(full.num_rows, part, num_parts)
+        arrays = {c: a[lo:hi] for c, a in full.arrays.items()}
+        nulls = ({c: m[lo:hi] for c, m in full.nulls.items()}
+                 if full.nulls is not None else None)
+        return HostTable(name, hi - lo, arrays, full.types, full.dicts,
+                         nulls)
 
     # ------------------------------------------------------------ writes
     def register(self, table: HostTable) -> None:

@@ -21,7 +21,12 @@
 //   no decomposed copy is written. Each limb sum is an int64 that can take
 //   2^31 row limbs without a carry; the exact value is recombined on the
 //   host, so group sums stay exact past 2^127, where one __int128
-//   accumulator would wrap.
+//   accumulator would wrap. The final merges sum128_merge/avg128_merge
+//   (presto_tpu/ops/aggregate.py:197-215) take this mode as it is: their
+//   input is the limb lanes of DECIMAL(38) partial states, any int64
+//   values, whose per-bin `cnt` counts the live states (none: NULL), and
+//   avg128_merge adds the int64 sum of its partial count column as a
+//   second input of the same launch.
 // Outputs a caller did not ask for hold the statistic's identity (0, or
 // +-inf / INT64_MAX / INT64_MIN for min and max).
 //

@@ -49,6 +49,15 @@
 // stay exact past 2^127, where an __int128 accumulator would wrap. Same
 // schedule as the default mode; limb partials combine by wrapping add.
 //
+// Merge mode (segment_merge128; the FINAL kinds sum128_merge/avg128_merge
+// of presto_tpu/ops/aggregate.py:556-575, over DECIMAL(38) partial states):
+// the 128-bit sum mode over four limb lanes, whose values may be any int64
+// (a state's lanes are sums of up to 2^31 row limbs, and a merge over up to
+// 2^31 states stays exact), plus, for avg128_merge, the wrapping int64 sum
+// of the partial count column under its own live flags, in the same
+// launch. The live count is the number of live states: a group with none
+// is NULL.
+//
 // Bound on an H100: memory. Each row's value and live flag are read once
 // (9 or 5 B/row; 33 B in the limb mode), each segment's start and end read
 // and its results written once. The three launches (a memset of two
@@ -202,25 +211,48 @@ struct Reduce {
   }
 };
 
-// The 128-bit sum mode: count and four wrapping limb sums.
+// The 128-bit sum mode: count and four wrapping limb sums; the merge mode
+// (MERGE) also the count column's sum `cs`.
 struct Acc128 {
-  long long c, l[4];
+  long long c, l[4], cs;
 };
 
+template <bool MERGE>
 struct Reduce128 {
   typedef Acc128 State;
   const int64_t *l3, *l2, *l1, *l0;
   int dtype;
   const uint8_t* live;
-  int64_t *cnt_out, *lsum_out;
+  const int64_t* cval;      // MERGE: the partial count column, or null
+  const uint8_t* clive;     // MERGE: where a count adds
+  int64_t *cnt_out, *lsum_out, *csum_out;
   int64_t nseg;
 
   __device__ void init(Acc128& a) const {
     a.c = 0;
+    a.cs = 0;
 #pragma unroll
     for (int q = 0; q < 4; ++q) a.l[q] = 0;
   }
   __device__ void row(Acc128& a, int64_t i) const {
+    if (MERGE) {
+      // every load of the row is issued before any branch on a loaded
+      // flag, so that they overlap (a thread takes up to SMALL_MAX rows
+      // one after another)
+      const long long x3 = l3[i], x2 = l2[i], x1 = l1[i], x0 = l0[i];
+      const bool on = live[i];
+      if (cval != nullptr) {
+        const long long cv = cval[i];
+        a.cs = wrap_add(a.cs, clive[i] ? cv : 0);
+      }
+      if (!on) return;
+      ++a.c;
+      a.l[0] = wrap_add(a.l[0], x3);
+      a.l[1] = wrap_add(a.l[1], x2);
+      a.l[2] = wrap_add(a.l[2], x1);
+      a.l[3] = wrap_add(a.l[3], x0);
+      return;
+    }
     if (dtype == DT_LIMBS) {
       const long long x3 = l3[i], x2 = l2[i], x1 = l1[i], x0 = l0[i];
       if (live != nullptr && !live[i]) return;
@@ -246,24 +278,29 @@ struct Reduce128 {
     a.c += b.c;
 #pragma unroll
     for (int q = 0; q < 4; ++q) a.l[q] = wrap_add(a.l[q], b.l[q]);
+    if (MERGE) a.cs = wrap_add(a.cs, b.cs);
   }
   __device__ void shfl_merge(Acc128& a, int o) const {
     Acc128 b;
     b.c = __shfl_xor_sync(FULL, a.c, o);
 #pragma unroll
     for (int q = 0; q < 4; ++q) b.l[q] = __shfl_xor_sync(FULL, a.l[q], o);
+    b.cs = MERGE ? __shfl_xor_sync(FULL, a.cs, o) : 0;
     merge(a, b);
   }
   __device__ void store(int64_t g, const Acc128& a) const {
     cnt_out[g] = a.c;
 #pragma unroll
     for (int q = 0; q < 4; ++q) lsum_out[q * nseg + g] = a.l[q];
+    if (MERGE && csum_out != nullptr) csum_out[g] = a.cs;
   }
+  // words 0..4 of a slot's partial (and 5 in the merge mode)
   __device__ void save(long long* part, int64_t cap, int64_t j,
                        const Acc128& a) const {
     part[j] = a.c;
 #pragma unroll
     for (int q = 0; q < 4; ++q) part[(q + 1) * cap + j] = a.l[q];
+    if (MERGE) part[5 * cap + j] = a.cs;
   }
   __device__ Acc128 load(const long long* part, int64_t cap,
                          int64_t j) const {
@@ -271,6 +308,7 @@ struct Reduce128 {
     a.c = __ldcg(part + j);
 #pragma unroll
     for (int q = 0; q < 4; ++q) a.l[q] = __ldcg(part + (q + 1) * cap + j);
+    a.cs = MERGE ? __ldcg(part + 5 * cap + j) : 0;
     return a;
   }
 };
@@ -503,15 +541,49 @@ int segment_sum128(const void* l3, const void* l2, const void* l1,
   if (nseg <= 0) return 0;
   if (dtype < DT_I64 || dtype > DT_LIMBS || nseg > INT_MAX || n < 0)
     return (int)cudaErrorInvalidValue;
-  Reduce128 r;
+  Reduce128<false> r;
   r.l3 = (const int64_t*)l3;
   r.l2 = (const int64_t*)l2;
   r.l1 = (const int64_t*)l1;
   r.l0 = (const int64_t*)l0;
   r.dtype = dtype;
   r.live = (const uint8_t*)live;
+  r.cval = nullptr;
+  r.clive = nullptr;
   r.cnt_out = (int64_t*)cnt;
   r.lsum_out = (int64_t*)lsum;
+  r.csum_out = nullptr;
+  r.nseg = nseg;
+  return run(r, (const int64_t*)starts, (const int64_t*)ends, nseg, n,
+             scratch, (cudaStream_t)stream);
+}
+
+// The merge mode. l3..l0: the partial states' limb lanes (any int64);
+// live: [n] bool (a state is live where set); cval/clive: the partial
+// count column and where its rows add (both null for sum128_merge);
+// outputs: cnt [nseg] int64 (live states), lsum [4, nseg] int64, csum
+// [nseg] int64 (with cval); scratch as segment_reduce's.
+int segment_merge128(const void* l3, const void* l2, const void* l1,
+                     const void* l0, const void* live, const void* cval,
+                     const void* clive, const void* starts, const void* ends,
+                     int64_t nseg, int64_t n, void* cnt, void* lsum,
+                     void* csum, void* scratch, void* stream) {
+  if (nseg <= 0) return 0;
+  if (live == nullptr || (cval == nullptr) != (clive == nullptr)
+      || (cval != nullptr && csum == nullptr) || nseg > INT_MAX || n < 0)
+    return (int)cudaErrorInvalidValue;
+  Reduce128<true> r;
+  r.l3 = (const int64_t*)l3;
+  r.l2 = (const int64_t*)l2;
+  r.l1 = (const int64_t*)l1;
+  r.l0 = (const int64_t*)l0;
+  r.dtype = DT_LIMBS;
+  r.live = (const uint8_t*)live;
+  r.cval = (const int64_t*)cval;
+  r.clive = (const uint8_t*)clive;
+  r.cnt_out = (int64_t*)cnt;
+  r.lsum_out = (int64_t*)lsum;
+  r.csum_out = (int64_t*)csum;
   r.nseg = nseg;
   return run(r, (const int64_t*)starts, (const int64_t*)ends, nseg, n,
              scratch, (cudaStream_t)stream);

@@ -13,9 +13,22 @@ INSERT, DELETE and DROP TABLE write through a writable connector
 into temp tables (exec/cte.py). Rows go from the device to Python and
 back into the host table, as in the JAX engine.
 
+Memory-governed execution (`presto_tpu/exec/engine.py:89-182`): with a
+`memory_pool` (exec/memory.MemoryPool), a query's plan footprint is
+reserved under its query id as it runs; a query over the pool's budget
+(ExceededMemoryLimitError) is retried under the pool's headroom by
+`exec/lifespan.execute_bounded`, in lifespans that double until the
+footprint fits (`last_memory_fallback_batches`), and a join-rooted plan
+that does not batch goes through the Grace spill join
+(`exec/spill_join.execute_spill_join`, `last_spill_join_stats`); with a
+`cluster_memory` (ClusterMemoryManager) the kill sweep runs while the
+query's reservations are live, and a killed query raises. The
+`lifespan_batches` session property streams the driving scan in that
+many lifespans (`last_lifespan_stats`).
+
 Left out for now (they do not change the rows of a query): tracing, plugin
-access checks, the memory pool, history-based statistics. EXPLAIN ANALYZE
-and materialized views are later slices.
+access checks, history-based statistics. EXPLAIN ANALYZE and materialized
+views are later slices.
 """
 
 from __future__ import annotations
@@ -30,7 +43,10 @@ from presto_tpu_torch.sql.parser import parse_sql
 
 
 class LocalEngine:
-    def __init__(self, connector, session=None, device=None):
+    _qid = 0
+
+    def __init__(self, connector, session=None, device=None,
+                 memory_pool=None, cluster_memory=None):
         from presto_tpu_torch.config import Session
 
         s = session or Session()
@@ -44,8 +60,18 @@ class LocalEngine:
         self.connector = connector
         self.planner = Planner(connector)
         self.executor = Executor(connector, session=s, device=self.device)
+        # memory-management hierarchy (exec/memory.py): reservations per
+        # query, the batched and spilled fallbacks, cluster kill checks
+        self.memory_pool = memory_pool
+        self.cluster_memory = cluster_memory
+        self.executor.memory_pool = memory_pool
         self._plans = {}
         self.last_join_reorders = 0
+        self.last_memory_fallback_batches = 0
+        # stats of the Grace spill join of the last query that took it
+        self.last_spill_join_stats = None
+        # {"batches", "skipped", ...} of the last lifespan-batched query
+        self.last_lifespan_stats = None
 
     @property
     def session(self):
@@ -68,6 +94,66 @@ class LocalEngine:
         return self.plan_sql(sql).output_names
 
     def execute_sql(self, sql: str) -> List[tuple]:
+        LocalEngine._qid += 1
+        qid = f"local_{LocalEngine._qid}"
+        if self.memory_pool is None:
+            return self._execute_sql_inner(sql)
+        return self._execute_under_pool(sql, qid)
+
+    def _execute_under_pool(self, sql: str, qid: str) -> List[tuple]:
+        """Memory-governed execution (presto_tpu/exec/engine.py:89-142):
+        an admission failure retries lifespan-batched under the pool's
+        headroom (partials leave the device between lifespans), a
+        join-rooted plan through the Grace spill join, before the error
+        surfaces; a cluster-level kill beats everything."""
+        from presto_tpu_torch.exec.memory import ExceededMemoryLimitError
+        if self.cluster_memory is not None:
+            self.cluster_memory.check_killed(qid)
+        self.executor.pool_query_id = qid
+        try:
+            try:
+                out = self._execute_sql_inner(sql)
+            except ExceededMemoryLimitError:
+                if self.cluster_memory is not None:
+                    self.cluster_memory.check_killed(qid)
+                from presto_tpu_torch.exec.executor import \
+                    MemoryLimitExceeded
+                from presto_tpu_torch.exec.lifespan import execute_bounded
+                plan = self.plan_sql(sql)
+                # the aborted attempt's pages are gone: release its
+                # reservations BEFORE sizing the batched retry
+                self.memory_pool.free(qid)
+                headroom = max(self.memory_pool.budget
+                               - self.memory_pool.reserved, 1)
+                try:
+                    page, batches = execute_bounded(
+                        self.connector, plan, headroom,
+                        session=self.session, device=self.device)
+                    self.last_memory_fallback_batches = batches
+                except MemoryLimitExceeded as mle:
+                    # join-rooted plans do not batch: partition both
+                    # sides through the spiller instead
+                    from presto_tpu_torch.exec.spill_join import (
+                        SpillJoinUnsupported, execute_spill_join)
+                    try:
+                        page, sj_stats = execute_spill_join(
+                            self.connector, plan, headroom,
+                            session=self.session, device=self.device)
+                    except SpillJoinUnsupported:
+                        raise mle
+                    self.last_spill_join_stats = sj_stats
+                out = page.to_pylist()
+            if self.cluster_memory is not None:
+                # the kill sweep runs while this query's reservations are
+                # live: if it is the biggest over-budget query, the kill
+                # lands on it
+                self.cluster_memory.maybe_kill()
+                self.cluster_memory.check_killed(qid)
+            return out
+        finally:
+            self.memory_pool.free(qid)
+
+    def _execute_sql_inner(self, sql: str) -> List[tuple]:
         head = sql.lstrip().split(None, 1)[0].lower() if sql.strip() else ""
         if head == "explain":
             # EXPLAIN <query>: one VARCHAR row per plan line
@@ -83,7 +169,18 @@ class LocalEngine:
             if q.ctes:
                 # only WITH queries take the rewrite
                 return self._execute_with_cte_materialization(q)
-        page = self.executor.execute(self.plan_sql(sql))
+        plan = self.plan_sql(sql)
+        n = self.session["lifespan_batches"]
+        if n and n > 1:
+            from presto_tpu_torch.exec.lifespan import execute_batched
+            self.last_lifespan_stats = {}
+            page = execute_batched(
+                self.connector, plan, n,
+                self.session["query_max_memory_per_node"],
+                session=self.session, stats=self.last_lifespan_stats,
+                device=self.device)
+        else:
+            page = self.executor.execute(plan)
         return page.to_pylist()
 
     def _execute_with_cte_materialization(self, q) -> List[tuple]:

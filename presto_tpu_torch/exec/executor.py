@@ -39,6 +39,20 @@ key under a merge join, watched under the negated node id) re-runs the
 plan at larger learned capacities (kept per plan for the executor's
 lifetime); an unnest's output capacity is learned the same way.
 
+Memory accounting follows the JAX executor (:105-146, :797, :1209-1213):
+a round's footprint is the sum over its plan nodes of the output
+capacity times `_row_bytes` of the node's output types (the fused
+Filter/Project chain under an aggregation is not a node of its own).
+The JAX executor knows every capacity before it runs anything; here each
+node's share is added just before the node allocates its output, and the
+round raises `MemoryLimitExceeded` as soon as the running sum passes
+`memory_limit_bytes` (the session's `query_max_memory_per_node`). Since
+the sum only grows, the decision is the JAX executor's. With a
+`memory_pool`, each share is reserved under `pool_query_id` as it is
+added (the pool raises `ExceededMemoryLimitError` past its budget); a
+capacity-retry round frees the previous round's reservations and starts
+the sum again. `last_memory_estimate` is the last round's sum.
+
 A TableWriterNode root (`_execute_writer`, presto_tpu/exec/executor.py
 :174) runs its source tree on the device, then sinks the rows through the
 connector's `append_rows` on the host and returns the one-row BIGINT count
@@ -147,6 +161,27 @@ class QueryTimeoutError(RuntimeError):
     """query_max_execution_time exceeded (checked between operators)."""
 
 
+class MemoryLimitExceeded(Exception):
+    """The plan footprint exceeds the executor's memory limit: the caller
+    should batch (exec/lifespan.py) or reject the query
+    (presto_tpu/exec/executor.py:105). `estimated` is the running sum at
+    the node that passed the limit."""
+
+    def __init__(self, estimated: int, limit: int):
+        super().__init__(
+            f"plan needs ~{estimated // (1 << 20)} MiB device memory, "
+            f"limit is {limit // (1 << 20)} MiB")
+        self.estimated = estimated
+        self.limit = limit
+
+
+def _row_bytes(types) -> int:
+    """Bytes per row of a page with these column types (values + null
+    mask lane): the unit of capacity accounting, as the JAX executor
+    counts it (:119)."""
+    return sum(t.dtype.itemsize + 1 for t in types)
+
+
 class Executor:
     """Executes a plan against a connector on one device."""
 
@@ -161,6 +196,12 @@ class Executor:
         # UnionAll: tuple of branch dictionaries -> (merged dictionary,
         # per branch its code remap on the device, or None)
         self._merged_dicts: Dict[tuple, tuple] = {}
+        # memory accounting (None = unlimited); an optional MemoryPool
+        # (exec/memory.py) takes each node's share under pool_query_id
+        self.memory_limit_bytes = self.session["query_max_memory_per_node"]
+        self.last_memory_estimate = 0
+        self.memory_pool = None
+        self.pool_query_id: str = ""
 
     def execute(self, plan: PlanNode) -> Page:
         budget = self.session["query_max_execution_time"]
@@ -172,8 +213,13 @@ class Executor:
 
     def _execute_tree(self, plan: PlanNode) -> Page:
         caps = self._learned.setdefault(plan, {})
+        held = [0]          # pool bytes the current round reserved
         for _attempt in range(8):
-            out, watch, needed, err = self._run(plan, caps)
+            if held[0]:
+                # the failed round's pages are gone: its reservations too
+                self.memory_pool.free(self.pool_query_id, held[0])
+                held[0] = 0
+            out, watch, needed, err = self._run(plan, caps, held)
             # the one host sync of execution: capacity needs + error lane
             counters = torch.stack(
                 [n.to(torch.int64).reshape(()) for n in needed]
@@ -226,6 +272,12 @@ class Executor:
 
     def _scan_rows(self, node) -> int:
         return self.connector.table(node.table).num_rows
+
+    def _scan_page(self, node, capacity: int) -> Page:
+        """The scanned columns of `node` at `capacity` on the device."""
+        return self.connector.table(node.table).page(
+            columns=list(node.columns), capacity=capacity,
+            device=self.device)
 
     def _resolve_subqueries(self, plan: PlanNode) -> PlanNode:
         """Pre-execute scalar subqueries (uncorrelated), substituting
@@ -281,15 +333,37 @@ class Executor:
         return rewrite(plan)
 
     # ------------------------------------------------------------------
-    def _run(self, plan: PlanNode, caps: Dict[int, int]):
+    def _run(self, plan: PlanNode, caps: Dict[int, int], held: List[int]):
         """Evaluate `plan` once at capacities `caps`. Returns (page,
         watched node ids, their true counts, error mask); node ids are
-        pre-order positions, as the JAX executor numbers them."""
+        pre-order positions, as the JAX executor numbers them. `held[0]`
+        collects the pool bytes this round reserves."""
         counter = [0]
         memo: Dict[int, Page] = {}
         watch: List[int] = []
         needed: List[torch.Tensor] = []
         dev = self.device
+        mem = [0]
+        self.last_memory_estimate = 0
+
+        def charge(node: PlanNode, cap: int) -> None:
+            """Account `node`'s output page before it is allocated."""
+            share = cap * _row_bytes(node.output_types)
+            mem[0] += share
+            self.last_memory_estimate = mem[0]
+            if self.memory_limit_bytes is not None \
+                    and mem[0] > self.memory_limit_bytes:
+                raise MemoryLimitExceeded(mem[0], self.memory_limit_bytes)
+            if self.memory_pool is not None:
+                self.memory_pool.reserve(self.pool_query_id, share)
+                held[0] += share
+
+        def run_source(node: PlanNode) -> Page:
+            """The node's source page, with the node's own output (at the
+            source's capacity) charged."""
+            p = run(node.source)
+            charge(node, p.capacity)
+            return p
 
         def run(node: PlanNode) -> Page:
             key = id(node)
@@ -302,21 +376,22 @@ class Executor:
         def run_node(node: PlanNode, nid: int) -> Page:
             if isinstance(node, TableScanNode):
                 cap = caps.get(nid) or bucket_capacity(self._scan_rows(node))
-                return self.connector.table(node.table).page(
-                    columns=list(node.columns), capacity=cap, device=dev)
+                charge(node, cap)
+                return self._scan_page(node, cap)
             if isinstance(node, ValuesNode):
                 n = len(node.rows)
+                charge(node, bucket_capacity(max(n, 1)))
                 cols = tuple(
                     Column.from_numpy(np.array([r[i] for r in node.rows]),
                                       t, device=dev)
                     for i, t in enumerate(node.output_types))
                 return Page.from_columns(cols, n, (), device=dev)
             if isinstance(node, FilterNode):
-                p = run(node.source)
+                p = run_source(node)
                 c = compile_expr(node.predicate)(p)
                 return compact(p, ~c.nulls & c.values.to(torch.bool))
             if isinstance(node, ProjectNode):
-                p = run(node.source)
+                p = run_source(node)
                 cols = tuple(compile_expr(e)(p) for e in node.expressions)
                 return Page(cols, p.num_rows, node.output_names)
             if isinstance(node, AggregationNode):
@@ -324,7 +399,7 @@ class Executor:
             if isinstance(node, JoinNode):
                 return run_join(node, nid)
             if isinstance(node, AssignUniqueIdNode):
-                p = run(node.source)
+                p = run_source(node)
                 ids = torch.arange(p.capacity, dtype=torch.int64,
                                    device=p.device)
                 col = Column(ids, ~p.row_valid(), node.output_types[-1],
@@ -332,14 +407,17 @@ class Executor:
                 return Page(p.columns + (col,), p.num_rows,
                             node.output_names)
             if isinstance(node, GroupIdNode):
-                return group_id_page(run(node.source), node)
+                p = run(node.source)
+                charge(node, len(node.grouping_sets) * p.capacity)
+                return group_id_page(p, node)
             if isinstance(node, MarkDistinctNode):
-                out = mark_distinct(run(node.source), node.key_fields,
+                out = mark_distinct(run_source(node), node.key_fields,
                                     node.output_names[-1])
                 return Page(out.columns, out.num_rows, node.output_names)
             if isinstance(node, UnionAllNode):
-                return union_all_pages([run(s) for s in node.sources], node,
-                                       merged_dict)
+                ps = [run(s) for s in node.sources]
+                charge(node, sum(p.capacity for p in ps))
+                return union_all_pages(ps, node, merged_dict)
             if isinstance(node, UnnestNode):
                 # presto_tpu/exec/executor.py:1152-1168: the output
                 # capacity is a bucket of the source capacity times the
@@ -350,6 +428,7 @@ class Executor:
                 out_cap = caps.get(nid) or bucket_capacity(
                     min(int(p.capacity * fan), 2**26))
                 caps[nid] = out_cap
+                charge(node, out_cap)
                 out, total = unnest_page(
                     p, node.replicate_fields, node.unnest_fields, out_cap,
                     node.with_ordinality, node.output_names)
@@ -357,17 +436,17 @@ class Executor:
                 needed.append(total)
                 return out
             if isinstance(node, WindowNode):
-                out = window_page(run(node.source), node.partition_fields,
+                out = window_page(run_source(node), node.partition_fields,
                                   node.order_keys, node.specs)
                 return Page(out.columns, out.num_rows, node.output_names)
             if isinstance(node, SortNode):
-                return sort_page(run(node.source), node.keys)
+                return sort_page(run_source(node), node.keys)
             if isinstance(node, TopNNode):
-                return top_n(run(node.source), node.keys, node.count)
+                return top_n(run_source(node), node.keys, node.count)
             if isinstance(node, LimitNode):
-                return limit_page(run(node.source), node.count)
+                return limit_page(run_source(node), node.count)
             if isinstance(node, OutputNode):
-                p = run(node.source)
+                p = run_source(node)
                 return Page(p.columns, p.num_rows, node.output_names)
             raise NotImplementedError(
                 f"lowering {type(node).__name__}: later slice of the port")
@@ -403,6 +482,7 @@ class Executor:
             if not node.group_fields:
                 out_cap = 256
             caps[nid] = out_cap
+            charge(node, out_cap)
             mask = None
             for step in steps:
                 if isinstance(step, FilterNode):
@@ -429,6 +509,7 @@ class Executor:
             b = run(node.build)
             jt = node.join_type
             if jt in (JoinType.SEMI, JoinType.ANTI, JoinType.ANTI_EXISTS):
+                charge(node, p.capacity)
                 # duplicates cannot change a match flag: no fallback
                 out, _dup, _m = merge_join(p, b, node.probe_keys,
                                            node.build_keys, jt.value)
@@ -448,6 +529,9 @@ class Executor:
                          and caps.get(-nid, 0) == 0)
             if use_merge:
                 caps[-nid] = 0
+                # FULL appends the unmatched build rows
+                charge(node, p.capacity + (b.capacity if jt == JoinType.FULL
+                                           else 0))
                 if node.filter is not None and jt == JoinType.LEFT:
                     # a failed residual demotes a match to a null
                     # extension (SQL outer-join ON clause)
@@ -486,6 +570,7 @@ class Executor:
             out_cap = caps.get(nid) or bucket_capacity(
                 min(int(p.capacity * fan), 2**26))
             caps[nid] = out_cap
+            charge(node, out_cap)
             if jt == JoinType.FULL:
                 raise NotImplementedError(
                     "full outer join with duplicate build keys (the "

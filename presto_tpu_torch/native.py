@@ -8,6 +8,11 @@ are built together, one `nvcc` process per source started at once.
 
 Every entry point returns the `cudaError_t` of its launches; wrappers pass
 it to `check`, which raises on anything but success.
+
+The host codec of the spill frames (csrc/page_codec.cc: LZ4 block
+compression and CRC32, a copy of presto_tpu/native/page_codec.cc) is
+built the same way with `g++` at first use (`codec()`), and bound as the
+JAX package binds it (`lz4_compress`, `lz4_decompress`, `crc32`).
 """
 
 from __future__ import annotations
@@ -17,9 +22,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+import numpy as np
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -49,7 +57,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "segment_reduce": [_P, _I32, _I32, _P, _P, _P, _I64, _I64,
                            _P, _P, _P, _P, _P, _P, _P],
         "segment_sum128": [_P, _P, _P, _P, _I32, _P, _P, _P, _I64, _I64,
-                           _P, _P, _P, _P]},
+                           _P, _P, _P, _P],
+        "segment_merge128": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                             _I64, _P, _P, _P, _P, _P]},
     "hash": {"hash_columns": [_P, _P, _P, _I32, _I64, _P, _P]},
     "join": {
         "join_probe": [_P, _I64, _P, _P, _I64, _P, _P, _P, _P, _I32, _I32,
@@ -179,3 +189,87 @@ def check(rc: int, what: str, lib_name: str) -> None:
     if rc != 0:
         msg = load(lib_name).kernel_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+# ---------------------------------------------------------------------------
+# the host codec of spill frames (csrc/page_codec.cc)
+# ---------------------------------------------------------------------------
+
+_CODEC_LOCK = threading.Lock()
+_CODEC: list = []          # [library or None] once tried
+
+
+def codec() -> Optional[ctypes.CDLL]:
+    """The page codec library, built with g++ into BUILD_DIR at first use
+    (its name carries a hash of the source); None where it cannot be
+    built or loaded."""
+    if _CODEC:
+        return _CODEC[0]
+    with _CODEC_LOCK:
+        if _CODEC:
+            return _CODEC[0]
+        src = CSRC / "page_codec.cc"
+        flags = ("-O3", "-shared", "-fPIC")
+        digest = hashlib.sha256(src.read_bytes()
+                                + " ".join(flags).encode()).hexdigest()
+        path = BUILD_DIR / f"libpage_codec-{digest[:12]}.so"
+        lib = None
+        try:
+            if not path.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+                subprocess.run(["g++", *flags, str(src), "-o", str(tmp)],
+                               check=True, capture_output=True, timeout=120)
+                os.replace(tmp, path)
+            lib = ctypes.CDLL(str(path))
+            lib.pt_crc32.restype = ctypes.c_uint32
+            lib.pt_crc32.argtypes = [_P, ctypes.c_size_t, ctypes.c_uint32]
+            for fn in ("pt_lz4_compress", "pt_lz4_decompress"):
+                f = getattr(lib, fn)
+                f.restype = ctypes.c_size_t
+                f.argtypes = [_P, ctypes.c_size_t, _P, ctypes.c_size_t]
+        except (OSError, subprocess.SubprocessError):
+            lib = None
+        _CODEC.append(lib)
+        return lib
+
+
+def lz4_compress(data) -> Optional[bytes]:
+    """LZ4 block compress; None if the codec library is absent."""
+    lib = codec()
+    if lib is None:
+        return None
+    n = len(data)
+    src = np.frombuffer(data, dtype=np.uint8)
+    cap = n + n // 255 + 64
+    out = np.empty(cap, dtype=np.uint8)
+    got = lib.pt_lz4_compress(src.ctypes.data if n else None, n,
+                              out.ctypes.data, cap)
+    if got == 0:
+        return None
+    return out[:got].tobytes()
+
+
+def lz4_decompress(data, uncompressed: int) -> Optional[bytes]:
+    """LZ4 block decompress to the declared size; None on failure or if
+    the codec library is absent."""
+    lib = codec()
+    if lib is None:
+        return None
+    src = np.frombuffer(data, dtype=np.uint8)
+    out = np.empty(max(uncompressed, 1), dtype=np.uint8)
+    got = lib.pt_lz4_decompress(src.ctypes.data if len(src) else None,
+                                len(src), out.ctypes.data, uncompressed)
+    if got != uncompressed:
+        return None
+    return out[:uncompressed].tobytes()
+
+
+def crc32(data, crc: int = 0) -> Optional[int]:
+    """zlib-compatible CRC32; None if the codec library is absent."""
+    lib = codec()
+    if lib is None:
+        return None
+    buf = np.frombuffer(data, dtype=np.uint8)
+    return int(lib.pt_crc32(buf.ctypes.data if len(buf) else None,
+                            len(buf), crc & 0xFFFFFFFF))

@@ -26,9 +26,18 @@ path) and the JAX package's estimate; approx_percentile selects each
 group's order statistic from the unsorted values with the hand-written
 `segment_select` kernel (csrc/percentile.cu, K13; by bin on the direct
 path, by group run on the sorted path), with no sort. Both raise
-NotImplementedError over a DECIMAL(38) input, as the JAX package does. The
-distributed merges sum128_merge/avg128_merge raise NotImplementedError: a
-later slice.
+NotImplementedError over a DECIMAL(38) input, as the JAX package does.
+
+The final merges sum128_merge/avg128_merge (the FINAL step over
+DECIMAL(38) partial states, which exec/lifespan.py and the distributed
+split produce) sum each group's partial limb lanes, count its live
+partial states (a group with none is NULL) and, for avg128_merge, sum the
+count column into the result's `count`. They are routed as in the JAX
+package (presto_tpu/ops/aggregate.py:197-215, :471-473, :556-575): a
+global merge takes the one-bin direct path, where K1 sums the limb lanes
+and the count column in its 128-bit mode (`WANT_MERGE128`); a grouped
+merge always takes the sorted path, where K3's merge mode
+(`segment_merge128`) does the same per group run in one launch.
 
 Capacity contract as in the JAX package: the output page has capacity
 `out_capacity`; the true group count is returned unclamped so the executor
@@ -65,8 +74,10 @@ class AggSpec:
 
 _PORTED_KINDS = {"count_star", "count", "sum", "avg", "avg_partial",
                  "avg_final", "min", "max", "bool_or", "bool_and",
-                 "sum128", "avg128", "approx_distinct", "approx_percentile"}
+                 "sum128", "avg128", "sum128_merge", "avg128_merge",
+                 "approx_distinct", "approx_percentile"}
 _APPROX_KINDS = ("approx_distinct", "approx_percentile")
+_MERGE_KINDS = ("sum128_merge", "avg128_merge")
 _WIDE_KINDS = ("sum128", "avg128", "count", "min", "max")
 
 _DIRECT_MAX_BINS = 64
@@ -74,6 +85,9 @@ _DIRECT_MAX_BINS = 64
 WANT_SUM = 1
 WANT_MINMAX = 2
 WANT_SUM128 = 4
+#: a limb input of DECIMAL(38) partial states (sum128_merge/avg128_merge):
+#: summed as WANT_SUM128, and counted apart in the launch counters
+WANT_MERGE128 = 8
 
 
 def _check_kinds(aggs: Sequence[AggSpec]) -> None:
@@ -249,7 +263,8 @@ def direct_agg(capacity: int, num_rows: torch.Tensor,
     key the number of codes (a NULL key takes bin `domain`); inputs: per
     input (values float64/int64/int32 or four int64 limb lanes, bool nulls
     or None, want = WANT_SUM | WANT_MINMAX | WANT_SUM128; limb lanes take
-    WANT_SUM128 or nothing); mask: bool fused filter mask or None.
+    WANT_SUM128 or nothing, and WANT_MERGE128 beside WANT_SUM128 where
+    they are partial states); mask: bool fused filter mask or None.
 
     Returns "rows" [bins] int64 (valid rows per bin) and, per input and
     bin, "cnt" (live rows), "fsum" (float64 sum), "isum" (int64 sum,
@@ -278,6 +293,10 @@ def direct_agg(capacity: int, num_rows: torch.Tensor,
         (m, torch.bool) for m in (mask,) if m is not None] + [
         (nl, torch.bool) for _v, nl, _w in inputs if nl is not None]
     for v, _nl, want in inputs:
+        if want & WANT_MERGE128 and not (isinstance(v, tuple)
+                                         and want & WANT_SUM128):
+            raise TypeError("direct_agg: WANT_MERGE128 marks limb inputs "
+                            "summed with WANT_SUM128")
         if isinstance(v, tuple):
             if len(v) != 4 or want & (WANT_SUM | WANT_MINMAX):
                 raise TypeError("direct_agg: limb inputs are four lanes and "
@@ -348,7 +367,7 @@ def direct_agg(capacity: int, num_rows: torch.Tensor,
                 keep_alive.append((vals, nulls))
                 a.in_nulls[slot] = nulls.data_ptr() if nulls is not None \
                     else 0
-                a.in_want[slot] = want
+                a.in_want[slot] = want & ~WANT_MERGE128
             # a chunk's outputs are rows j0.. of the [inputs, bins] tensors
             j0 = chunk[0] if chunk else 0
             a.rows = rows.data_ptr()
@@ -365,12 +384,16 @@ def direct_agg(capacity: int, num_rows: torch.Tensor,
             direct_agg.launches += 1
             if any(inputs[j][2] & WANT_SUM128 for j in chunk):
                 direct_agg.sum128_launches += 1
+            if any(inputs[j][2] & WANT_MERGE128 for j in chunk):
+                direct_agg.merge128_launches += 1
     return out
 
 
 direct_agg.launches = 0
-#: launches that summed 128-bit limbs (the DECIMAL(38) mode)
+#: launches that summed 128-bit limbs (the DECIMAL(38) mode, merges too)
 direct_agg.sum128_launches = 0
+#: launches that merged DECIMAL(38) partial states (sum128_merge/avg128_merge)
+direct_agg.merge128_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -764,6 +787,20 @@ def _input_plan(page: Page, aggs: Sequence[AggSpec]):
         if a.kind == "count_star":
             per_agg.append((None, None))
             continue
+        if a.kind in _MERGE_KINDS:
+            # the partial states' limb lanes; avg128_merge also sums the
+            # partial count column (presto_tpu/ops/aggregate.py:197-215)
+            pc = page.columns[a.field]
+            if not isinstance(pc, Decimal128Column):
+                raise TypeError(f"{a.kind} over {type(pc).__name__}")
+            j = slot(("merge", a.field), pc.value_lanes, pc.nulls,
+                     WANT_SUM128 | WANT_MERGE128)
+            j2 = None
+            if a.kind == "avg128_merge":
+                cc = page.columns[a.field2]
+                j2 = slot(("count", a.field2), cc.values, cc.nulls, WANT_SUM)
+            per_agg.append((j, j2))
+            continue
         vals, nulls = _agg_inputs(a, page)
         wide = isinstance(vals, tuple)
         if wide and a.kind in ("min", "max"):
@@ -920,6 +957,13 @@ def _direct_grouped_aggregate(page: Page, group_fields: Sequence[int],
             cols.append(widen_wide(wins, (n_per == 0)[take]))
             continue
         n_per = r["cnt"][j]
+        if kind in _MERGE_KINDS:
+            # a bin without a live partial state is NULL; the count sum
+            # is zero where the merge is NULL
+            cols.append(widen_wide(r["lsum"][j], (n_per == 0)[take],
+                                   r["isum"][j2] if kind == "avg128_merge"
+                                   else None))
+            continue
         if kind in ("sum128", "avg128"):
             # four limb sums per bin; the exact value recombines on the
             # host (Decimal128Column.value_at)
@@ -991,7 +1035,10 @@ def grouped_aggregate(page: Page, group_fields: Sequence[int],
     if not group_fields:
         return _direct_grouped_aggregate(page, (), aggs, out_cap, row_mask,
                                          [], 1, min_groups=1)
-    d = _direct_domains(page, group_fields, direct_max_bins)
+    # grouped merges of DECIMAL(38) partial states: sorted path only
+    merge128 = any(a.kind in _MERGE_KINDS for a in aggs)
+    d = None if merge128 else _direct_domains(page, group_fields,
+                                              direct_max_bins)
     if d is not None:
         domains, prod = d
         return _direct_grouped_aggregate(page, group_fields, aggs, out_cap,
@@ -1086,6 +1133,23 @@ def _eval_agg_sorted(a: AggSpec, sp: Page, gvalid, flags, starts, ends,
 
     t = a.output_type
     kind = a.kind
+    if kind in _MERGE_KINDS:
+        # presto_tpu/ops/aggregate.py:556-575: each group run's partial
+        # limb lanes summed (K3's merge mode, one launch with the count
+        # column's sum for avg128_merge); NULL where no state is live
+        pc = sp.columns[a.field]
+        if not isinstance(pc, Decimal128Column):
+            raise TypeError(f"{kind} over {type(pc).__name__}")
+        cvals = clive = None
+        if kind == "avg128_merge":
+            cc = sp.columns[a.field2]
+            cvals, clive = cc.values.to(torch.int64), ~cc.nulls & gvalid
+        r = pscan.segment_merge128(pc.value_lanes, ~pc.nulls & gvalid,
+                                   starts, ends, cvals, clive)
+        is_null = (r["cnt"] == 0) | ~out_valid
+        return [Decimal128Column(
+            *[torch.where(is_null, 0, x) for x in r["lsum"]], is_null, t,
+            count=r.get("csum"))]
     vals, nulls = _agg_inputs(a, sp)
     nulls = nulls | ~gvalid
     dictionary = (sp.columns[a.field].dictionary

@@ -16,6 +16,10 @@ The port's twin of presto_tpu/ops/scan.py.
   reversed) scan that launches the hand-written kernel K7
   (csrc/seg_scan.cu) on CUDA tensors and runs its plain PyTorch version on
   CPU tensors.
+- `segment_merge128`, the final merge of DECIMAL(38) partial states per
+  group run (sum128_merge/avg128_merge of presto_tpu/ops/aggregate.py
+  :556-575): K3's merge mode, limb sums, live states and the count
+  column's sum in one launch.
 - `window_bounds`, a sorted window's partition and peer start and end
   positions (the four fills of presto_tpu/ops/window.py:197-204) in one
   launch of K7's bounds kernel.
@@ -196,6 +200,8 @@ def segment_reduce(values: torch.Tensor, live: Optional[torch.Tensor],
 segment_reduce.launches = 0
 #: launches of the 128-bit sum mode (the DECIMAL(38) kinds)
 segment_reduce.sum128_launches = 0
+#: launches of the merge mode (sum128_merge/avg128_merge, segment_merge128)
+segment_reduce.merge128_launches = 0
 
 
 def _segment_sum128(values, live, starts, ends) -> dict:
@@ -226,6 +232,94 @@ def _segment_sum128(values, live, starts, ends) -> dict:
     native.check(rc, "segment_sum128", "segment_reduce")
     segment_reduce.launches += 1
     segment_reduce.sum128_launches += 1
+    return out
+
+
+def _segment_merge128_plain(lanes, live, starts, ends, count_values=None,
+                            count_live=None) -> dict:
+    """Plain PyTorch version of K3's merge mode: the JAX function's
+    segment sums of the live states' lanes, of the live states and of the
+    count column (presto_tpu/ops/aggregate.py:556-575)."""
+    out = _segment_reduce_plain(tuple(lanes), live, starts, ends,
+                                WANT_SUM128)
+    if count_values is not None:
+        out["csum"] = _segment_reduce_plain(
+            count_values, count_live, starts, ends, WANT_SUM)["isum"]
+    return out
+
+
+def segment_merge128(lanes, live: torch.Tensor, starts: torch.Tensor,
+                     ends: torch.Tensor,
+                     count_values: Optional[torch.Tensor] = None,
+                     count_live: Optional[torch.Tensor] = None) -> dict:
+    """Merge DECIMAL(38) partial states over contiguous [starts[g],
+    ends[g]) row runs (K3's merge mode, csrc/segment_reduce.cu
+    segment_merge128). `lanes` are the states' four int64 limb lanes
+    (l3, l2, l1, l0), any int64 values; a state counts where `live`.
+    With `count_values` (int64, avg128_merge's partial counts) a row's
+    count adds where `count_live`, apart from `live`.
+
+    Returns "cnt" [G] (live states), "lsum" [4, G] (wrapping int64 sums of
+    each lane) and, with count_values, "csum" [G] (wrapping int64 sum).
+    On CPU tensors this is the plain version, as the JAX function takes
+    it; on CUDA tensors it launches the kernel once."""
+    if len(lanes) != 4 or any(
+            x.dtype != torch.int64 or x.dim() != 1
+            or x.shape != lanes[0].shape or x.device != lanes[0].device
+            for x in lanes):
+        raise TypeError("segment_merge128: four 1-d int64 limb lanes")
+    n, dev = lanes[0].shape[0], lanes[0].device
+    if live.dtype != torch.bool or live.shape != (n,):
+        raise TypeError("segment_merge128: live must be bool like the lanes")
+    if (count_values is None) != (count_live is None):
+        raise ValueError("segment_merge128: count_values and count_live "
+                         "go together")
+    if count_values is not None and (
+            count_values.dtype != torch.int64 or count_values.shape != (n,)
+            or count_live.dtype != torch.bool or count_live.shape != (n,)):
+        raise TypeError("segment_merge128: count_values int64 and "
+                        "count_live bool, like the lanes")
+    if starts.dtype != torch.int64 or ends.dtype != torch.int64 \
+            or starts.shape != ends.shape or starts.dim() != 1:
+        raise TypeError("segment_merge128: starts/ends must be 1-d int64 "
+                        "of one length")
+    extra = (count_values, count_live) if count_values is not None else ()
+    for t in (live, starts, ends) + extra:
+        if t.device != dev:
+            raise ValueError("segment_merge128: tensors on different "
+                             "devices")
+    if dev.type == "cpu":
+        return _segment_merge128_plain(lanes, live, starts, ends,
+                                       count_values, count_live)
+    if dev.type != "cuda":
+        raise RuntimeError(f"segment_merge128: no kernel for {dev}")
+    from presto_tpu_torch import native
+    g = starts.shape[0]
+    lanes = [x.contiguous() for x in lanes]
+    live, starts, ends = live.contiguous(), starts.contiguous(), \
+        ends.contiguous()
+    out = {"cnt": torch.empty(g, dtype=torch.int64, device=dev),
+           "lsum": torch.empty((4, g), dtype=torch.int64, device=dev)}
+    if count_values is not None:
+        count_values = count_values.contiguous()
+        count_live = count_live.contiguous()
+        out["csum"] = torch.empty(g, dtype=torch.int64, device=dev)
+
+    def ptr(t):
+        return ctypes.c_void_p(None if t is None else t.data_ptr())
+    lib = native.load("segment_reduce")
+    scratch = torch.empty(lib.segment_reduce_scratch_words(n, g),
+                          dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.segment_merge128(
+            *[ptr(x) for x in lanes], ptr(live), ptr(count_values),
+            ptr(count_live), ptr(starts), ptr(ends), g, n, ptr(out["cnt"]),
+            ptr(out["lsum"]), ptr(out.get("csum")), ptr(scratch),
+            ctypes.c_void_p(stream))
+    native.check(rc, "segment_merge128", "segment_reduce")
+    segment_reduce.launches += 1
+    segment_reduce.merge128_launches += 1
     return out
 
 

@@ -1066,6 +1066,108 @@ def test_segment_sum128_mode_matches_plain(cuda, case):
         _same(got["lsum"], plain["lsum"])
 
 
+def _merge_states(rng, n):
+    """Partial states of the DECIMAL(38) merges: any-int64 limb lanes,
+    NULL states, a count column with NULLs."""
+    lanes = tuple(torch.from_numpy(rng.integers(-2 ** 62, 2 ** 62, n))
+                  for _ in range(4))
+    nulls = torch.from_numpy(rng.random(n) < 0.2)
+    counts = torch.from_numpy(rng.integers(0, 10 ** 6, n))
+    cnulls = torch.from_numpy(rng.random(n) < 0.05)
+    return lanes, nulls, counts, cnulls
+
+
+@pytest.mark.parametrize("cap,n", [(256, 32), (1 << 20, 1_000_003)])
+def test_direct_agg_merge_mode_matches_plain(cuda, cap, n):
+    """sum128_merge/avg128_merge on the global path: K1's 128-bit mode
+    over the states' lanes and the int64 sum of the count column, one
+    launch, counted as a merge."""
+    rng = np.random.default_rng(cap)
+    lanes, nulls, counts, cnulls = _merge_states(rng, cap)
+    inputs = [(lanes, nulls, A.WANT_SUM128 | A.WANT_MERGE128),
+              (counts, cnulls, A.WANT_SUM)]
+    plain = A.direct_agg(cap, torch.tensor(n), [], [], inputs)
+    before = (A.direct_agg.launches, A.direct_agg.merge128_launches)
+    got = A.direct_agg(
+        cap, torch.tensor(n, device=cuda), [], [],
+        [(tuple(t.to(cuda) for t in lanes), nulls.to(cuda), inputs[0][2]),
+         (counts.to(cuda), cnulls.to(cuda), A.WANT_SUM)])
+    assert A.direct_agg.launches - before[0] == 1
+    assert A.direct_agg.merge128_launches - before[1] == 1
+    for name in ("rows", "cnt", "isum", "lsum"):
+        _same(got[name], plain[name])
+
+
+@pytest.mark.parametrize("case", list(SEGMENT_LENGTHS))
+@pytest.mark.parametrize("with_count", [False, True])
+def test_segment_merge128_mode_matches_plain(cuda, case, with_count):
+    rng = np.random.default_rng(14)
+    starts, ends, n = _segments(rng, case)
+    lanes, nulls, counts, cnulls = _merge_states(rng, n)
+    live, clive = ~nulls, ~cnulls
+    extra = (counts, clive) if with_count else (None, None)
+    plain = S.segment_merge128(lanes, live, starts, ends, *extra)
+    before = (S.segment_reduce.launches, S.segment_reduce.merge128_launches)
+    got = S.segment_merge128(
+        tuple(t.to(cuda) for t in lanes), live.to(cuda), starts.to(cuda),
+        ends.to(cuda), *[None if t is None else t.to(cuda) for t in extra])
+    assert S.segment_reduce.launches - before[0] == 1
+    assert S.segment_reduce.merge128_launches - before[1] == 1
+    assert ("csum" in got) == with_count == ("csum" in plain)
+    for name in plain:
+        _same(got[name], plain[name])
+
+
+def test_grouped_merge_on_the_card_matches_the_cpu(cuda):
+    """grouped_aggregate's merges route as in the JAX package: a grouped
+    merge takes the sorted path even over dictionary keys (K3's merge
+    mode), a global one the one-bin direct path (K1)."""
+    rng = np.random.default_rng(15)
+    cap, n = 4096, 3000
+    lanes, nulls, counts, cnulls = _merge_states(rng, cap)
+    t = T.DecimalType(38, 2)
+    words = ["a", "b", "c"]
+    codes = rng.integers(0, 3, cap).astype(np.int32)
+
+    def page(dev):
+        cols = [C.Column.from_numpy(codes[:n], T.VARCHAR,
+                                    dictionary=C.StringDict(words),
+                                    capacity=cap, device=dev),
+                C.Decimal128Column(*[x.to(dev) for x in lanes],
+                                   nulls.to(dev), t),
+                C.Column.from_numpy(counts.numpy()[:n], T.BIGINT,
+                                    nulls=cnulls.numpy()[:n], capacity=cap,
+                                    device=dev)]
+        return C.Page.from_columns(cols, n, device=dev)
+    aggs = [A.AggSpec("sum128_merge", 1, t),
+            A.AggSpec("avg128_merge", 1, t, field2=2)]
+    for keys, counter in (((0,), S.segment_reduce), ((), A.direct_agg)):
+        before = counter.merge128_launches
+        got, _ = A.grouped_aggregate(page(cuda), keys, aggs, 256)
+        want, _ = A.grouped_aggregate(page("cpu"), keys, aggs, 256)
+        assert counter.merge128_launches > before
+        assert got.to_pylist() == want.to_pylist()
+
+
+def test_bounded_path_on_the_card(cuda):
+    """chip_smoke.py's phase 4g at SF 0.01: batched, spilled, pooled and
+    Grace-joined runs on the card against the run whole, the CPU and
+    numpy (bounded_path fails on any difference); the merge modes, K4 and
+    K5 launched."""
+    from chip_smoke import ModeCount, bounded_path
+    from presto_tpu_torch.connectors import TpchConnector
+    counters = [
+        ModeCount(A.direct_agg, "direct_agg_merge128",
+                  attr="merge128_launches"),
+        ModeCount(S.segment_reduce, "segment_reduce_merge128",
+                  attr="merge128_launches"),
+        A.direct_agg, C.compact_indices, S.segment_reduce, K.hash_columns,
+        J.join_probe]
+    launches = bounded_path(TpchConnector(0.01), counters)
+    assert launches["direct_agg_merge128"] \
+        and launches["segment_reduce_merge128"]
+
+
 def test_spec_typed_tpch_on_the_card_matches_the_cpu(cuda):
     """TPC-H q01, q03, q06, q10 and q19 over lineitem with DECIMAL(12,2)
     money columns, and sums of 2 x 9.9e37, exactly equal on both
